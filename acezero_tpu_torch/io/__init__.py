@@ -1,0 +1,14 @@
+from acezero_tpu_torch.io.pose_files import (
+    PoseFileEntry,
+    format_pose_line,
+    get_files_from_glob,
+    load_focal_length,
+    load_pose_matrix,
+    read_pose_file,
+    write_pose_file,
+)
+
+__all__ = [
+    "PoseFileEntry", "format_pose_line", "get_files_from_glob", "load_focal_length",
+    "load_pose_matrix", "read_pose_file", "write_pose_file",
+]

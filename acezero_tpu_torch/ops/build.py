@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher and becomes its
+own shared library, `_build/<name>-<hash>.so`, where the hash covers the
+source and the compiler flags: a library is rebuilt only when one of them
+changes. Builds happen on first use, never at import, and all requested
+sources compile in parallel. There is no fallback: a missing `nvcc` or a
+failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# per kernel: {"seconds": build wall time (0.0 when cached), "log": nvcc output}
+build_info: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the port's "
+        "CUDA kernels are built from source on the machine with the card"
+    )
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str]) -> dict[str, Path]:
+    """Compile every named source that is not built yet, all at once."""
+    targets = {n: _target(n) for n in names}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
+    for n in targets:
+        if n not in todo:
+            build_info.setdefault(n, {"seconds": 0.0, "log": "cached"})
+    if not todo:
+        return targets
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for n, t in todo.items():
+        tmp = t.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        build_info[n] = {"seconds": time.perf_counter() - t0, "log": log}
+        if p.returncode != 0:
+            failed.append(f"{n}: nvcc exit {p.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
