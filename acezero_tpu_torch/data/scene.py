@@ -1,21 +1,31 @@
 """Scene dataset container and loader.
 
-Counterpart of acezero_tpu/data/scene.py for the branches registration
-uses: an RGB glob, optionally a glob of 4x4 cam-to-world pose files, and
-the focal length from an external value or the heuristic (70% of the
-original image diagonal). Focals are kept both in original pixels and in
-resized canvas pixels.
+Counterpart of acezero_tpu/data/scene.py for these data definitions:
+  - an RGB glob, optionally with a glob of 4x4 cam-to-world pose files;
+  - an RGB glob with an ACE pose file and a confidence filter (the file
+    names the frames and carries their poses and focal lengths);
+  - a single-image pose seed (identity pose);
+with the focal length from an external value, the heuristic (70% of the
+original image diagonal), or the ACE pose file, in that order. Focals are
+kept both in original pixels and in resized canvas pixels. Per-frame
+calibration files are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 
 from acezero_tpu_torch.data.images import DecodedImages, decode_to_canvas, heuristic_focal_length
-from acezero_tpu_torch.io.pose_files import get_files_from_glob, is_pose_valid, load_pose_files_glob
+from acezero_tpu_torch.io.pose_files import (
+    get_files_from_glob,
+    is_pose_valid,
+    load_pose_files_glob,
+    read_pose_file,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -30,6 +40,8 @@ class SceneData:
     pose_valid: np.ndarray  # (N,) bool
     focals_canvas: np.ndarray  # (N,) float32, canvas-pixel focal lengths
     focals_orig: np.ndarray  # (N,) float32, original-pixel focal lengths
+    # canvas-resolution metric depth per frame index (depth supervision)
+    depth_maps: dict[int, np.ndarray] = field(default_factory=dict)
 
     def __len__(self) -> int:
         return len(self.rgb_files)
@@ -38,50 +50,106 @@ class SceneData:
     def canvas_hw(self) -> tuple[int, int]:
         return self.images.canvas_hw
 
+    @property
+    def principal_point(self) -> tuple[float, float]:
+        h, w = self.canvas_hw
+        return w / 2.0, h / 2.0
+
+    def mean_camera_center(self) -> np.ndarray:
+        """Mean translation of the valid cam-to-world poses (the head's
+        scene-mean buffer)."""
+        valid = self.pose_valid & np.isfinite(self.poses_c2w).all(axis=(1, 2))
+        if valid.sum() == 0:
+            return np.zeros(3, np.float32)
+        return self.poses_c2w[valid, :3, 3].mean(axis=0).astype(np.float32)
+
+    def subset(self, indices) -> "SceneData":
+        """The scene restricted to `indices` (canvases copied)."""
+        indices = np.asarray(indices)
+        images = self.images
+        return SceneData(
+            rgb_files=[self.rgb_files[i] for i in indices],
+            images=DecodedImages(
+                canvases=images.canvases[indices],
+                sizes=images.sizes[indices],
+                orig_sizes=images.orig_sizes[indices],
+                scale_factors=images.scale_factors[indices],
+            ),
+            poses_c2w=self.poses_c2w[indices],
+            pose_valid=self.pose_valid[indices],
+            focals_canvas=self.focals_canvas[indices],
+            focals_orig=self.focals_orig[indices],
+            depth_maps={j: self.depth_maps[i] for j, i in enumerate(indices) if i in self.depth_maps},
+        )
+
 
 def load_scene(
     rgb_files: str,
     pose_files: str | None = None,
+    ace_pose_file: str | Path | None = None,
+    ace_pose_file_conf_threshold: float | None = 1000.0,
+    pose_seed: float = -1.0,
     image_short_size: int = 480,
     use_heuristic_focal_length: bool = False,
     external_focal_length: float | None = None,
     canvas_hw: tuple[int, int] | None = None,
     num_workers: int = 16,
 ) -> SceneData:
-    """Load a scene: files from `rgb_files`, poses from `pose_files` (frames
-    with a non-finite pose are dropped), focal from `external_focal_length`
-    or the heuristic."""
-    files = get_files_from_glob(rgb_files)
-    if pose_files is not None:
-        poses = load_pose_files_glob(pose_files)
-        if len(poses) != len(files):
-            raise ValueError(f"{len(files)} rgb files but {len(poses)} pose files for {pose_files}")
-        keep = [i for i, p in enumerate(poses) if is_pose_valid(p)]
-        if len(keep) < len(files):
-            _logger.warning("Dropping %d invalid poses", len(files) - len(keep))
-        files = [files[i] for i in keep]
-        poses = [poses[i] for i in keep]
+    """Load a scene following the reference's data-definition precedence:
+    an ACE pose file (entries above the confidence threshold) over the RGB
+    glob with `pose_files` (frames with a non-finite pose are dropped) over
+    the bare glob; `pose_seed` >= 0 then keeps the single frame at that
+    fraction of the list, with an identity pose."""
+    focal_per_file: dict[str, float] = {}
+    if ace_pose_file is not None:
+        entries = read_pose_file(ace_pose_file, confidence_threshold=ace_pose_file_conf_threshold)
+        files = [e.rgb_file for e in entries]
+        poses = [e.pose_c2w for e in entries]
+        focal_per_file = {e.rgb_file: e.focal_length for e in entries}
         pose_valid = np.ones(len(files), bool)
+        if not files:
+            raise ValueError(f"No entries above confidence threshold in {ace_pose_file}")
     else:
-        poses = [np.eye(4) for _ in files]
-        pose_valid = np.zeros(len(files), bool)
-    if external_focal_length is None and not use_heuristic_focal_length:
-        raise ValueError(
-            "No focal length available: provide external_focal_length or enable "
-            "use_heuristic_focal_length."
-        )
+        files = get_files_from_glob(rgb_files)
+        if pose_files is not None:
+            poses = load_pose_files_glob(pose_files)
+            if len(poses) != len(files):
+                raise ValueError(f"{len(files)} rgb files but {len(poses)} pose files for {pose_files}")
+            keep = [i for i, p in enumerate(poses) if is_pose_valid(p)]
+            if len(keep) < len(files):
+                _logger.warning("Dropping %d invalid poses", len(files) - len(keep))
+            files = [files[i] for i in keep]
+            poses = [poses[i] for i in keep]
+            pose_valid = np.ones(len(files), bool)
+        else:
+            poses = [np.eye(4) for _ in files]
+            pose_valid = np.zeros(len(files), bool)
+
+    if pose_seed > -1:
+        seed_index = int(pose_seed * len(files))
+        _logger.info("Seed dataset: image %d (%s)", seed_index, files[seed_index])
+        files = [files[seed_index]]
+        poses = [np.eye(4)]
+        pose_valid = np.ones(1, bool)
 
     images = decode_to_canvas(files, short_size=image_short_size, canvas_hw=canvas_hw,
                               num_workers=num_workers)
     n = len(files)
     focals = np.zeros(n, np.float32)
     focals_orig = np.zeros(n, np.float32)
-    for i in range(n):
+    for i, f in enumerate(files):
         if external_focal_length is not None:
             focal_orig = external_focal_length
-        else:
+        elif use_heuristic_focal_length:
             h0, w0 = images.orig_sizes[i]
             focal_orig = heuristic_focal_length(int(h0), int(w0))
+        elif f in focal_per_file:
+            focal_orig = focal_per_file[f]
+        else:
+            raise ValueError(
+                "No focal length available: provide external_focal_length, enable "
+                "use_heuristic_focal_length, or load from an ACE pose file."
+            )
         focals_orig[i] = focal_orig
         focals[i] = focal_orig * images.scale_factors[i]
 

@@ -36,5 +36,14 @@ def dense(x: torch.Tensor, p: dict, compute_dtype=torch.bfloat16) -> torch.Tenso
     return (torch.matmul(xc, wc) + p["b"].float()).to(compute_dtype)
 
 
+def init_dense(generator: torch.Generator, cin: int, cout: int, device="cpu") -> dict:
+    """Dense layer (== 1x1 conv) params, torch-default initialised:
+    U(-1/sqrt(cin), 1/sqrt(cin)) for weight and bias."""
+    bound = 1.0 / cin**0.5
+    w = torch.rand((cin, cout), generator=generator) * 2 * bound - bound
+    b = torch.rand((cout,), generator=generator) * 2 * bound - bound
+    return {"w": w.to(device), "b": b.to(device)}
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)

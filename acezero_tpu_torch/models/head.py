@@ -1,10 +1,12 @@
 """Scene-coordinate regression head: the per-scene map network.
 
 Counterpart of acezero_tpu/models/head.py. All layers are dense layers over
-the feature axis. On the standard layout (no `head_skip`), the 512-wide
-residual chain runs through `ops.fused_head.fused_head_chain`: the Hopper
-kernel for CUDA tensors, its plain version for CPU tensors. fc3 and the
-homogeneous epilogue follow in torch.
+the feature axis. On the standard layout (no `head_skip`, bf16 compute),
+the 512-wide residual chain runs through the autograd Function
+`ops.fused_head.FusedHeadChain` on every device: forward and backward are
+the Hopper kernels for CUDA tensors and their plain versions for CPU
+tensors, so the CPU tests run the same VJP arithmetic as the card. fc3 and
+the homogeneous epilogue follow in torch.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from acezero_tpu_torch.models.common import dense, relu
+from acezero_tpu_torch.models.common import dense, init_dense, relu
 
 
 @dataclass(frozen=True)
@@ -26,6 +28,29 @@ class HeadConfig:
     head_channels: int = 512
     homogeneous_min_scale: float = 0.01
     homogeneous_max_scale: float = 4.0
+
+
+def init_head_params(generator: torch.Generator, cfg: HeadConfig, mean, device="cpu") -> dict:
+    """Torch-default initialised head; `mean` is the scene-mean buffer (3,).
+    Layers draw from `generator` in the JAX package's order (its draws
+    differ; tests cross JAX's own initialisation with `params_from_jax`)."""
+    c = cfg.head_channels
+    params: dict = {
+        "res3_conv1": init_dense(generator, cfg.in_channels, c, device),
+        "res3_conv2": init_dense(generator, c, c, device),
+        "res3_conv3": init_dense(generator, c, c, device),
+        "fc1": init_dense(generator, c, c, device),
+        "fc2": init_dense(generator, c, c, device),
+        "fc3": init_dense(generator, c, 4 if cfg.use_homogeneous else 3, device),
+        "blocks": [
+            {f"c{j}": init_dense(generator, c, c, device) for j in range(3)}
+            for _ in range(cfg.num_head_blocks)
+        ],
+        "mean": torch.as_tensor(mean, dtype=torch.float32).reshape(3).to(device),
+    }
+    if cfg.in_channels != cfg.head_channels:
+        params["head_skip"] = init_dense(generator, cfg.in_channels, c, device)
+    return params
 
 
 def _chain_eager(params: dict, features: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -53,10 +78,11 @@ def head_apply_flat(
         hidden = _chain_eager(params, features, compute_dtype)
     else:
         # local import: ops.fused_head imports HeadConfig from this module
-        from acezero_tpu_torch.ops.fused_head import fused_head_chain, head_params_to_stack
+        from acezero_tpu_torch.ops.fused_head import FusedHeadChain, head_params_to_stack
 
-        w, b, res_after = head_params_to_stack(params, cfg)
-        hidden = fused_head_chain(features.to(torch.bfloat16).contiguous(), w, b, res_after)
+        # f32 stack: the weight gradient reaches the f32 parameters unrounded
+        w, b, res_after = head_params_to_stack(params, cfg, w_dtype=torch.float32)
+        hidden = FusedHeadChain.apply(features.to(torch.bfloat16).contiguous(), w, b, res_after)
     return head_epilogue(params, cfg, hidden, compute_dtype)
 
 

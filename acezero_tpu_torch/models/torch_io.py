@@ -1,15 +1,18 @@
-"""Checkpoint loading for the port.
+"""Checkpoint loading and saving for the port.
 
 Encoders (`weights/*.pt`) are torch state dicts of Conv2d layers, loaded as
 they are (OIHW). Heads (ACE `iterationX.pt`, fp16) are 1x1-conv state dicts
 whose architecture is inferred from the keys, as the reference does: the
 extra-block count from `<i>c0.weight`, homogeneous output from fc3's width.
-`params_from_jax` converts the JAX package's numpy parameter trees (HWIO
-convs, (cin, cout) dense layers) into the port's layout.
+`save_head` writes the same keys (and the scale buffers) as the JAX
+package's writer, fp16 by default, so either package reads the other's
+file. `params_from_jax` converts the JAX package's numpy parameter trees
+(HWIO convs, (cin, cout) dense layers) into the port's layout.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from pathlib import Path
 
@@ -85,10 +88,48 @@ def load_head(path: str | Path, device="cpu") -> tuple[HeadConfig, dict]:
     return import_head_state_dict(load_state_dict(path), device)
 
 
-def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu"):
+def export_head_state_dict(params: dict, cfg: HeadConfig, half: bool = True) -> dict:
+    """Head params -> torch state dict of 1x1 convs (fp16 by default), with
+    the reference's keys and scale buffers."""
+
+    def t(x):
+        out = x.detach().to("cpu", torch.float32).clone()
+        return out.half() if half else out
+
+    def conv(w):
+        return t(w).t().contiguous()[:, :, None, None]
+
+    sd = {}
+    for key in _HEAD_DENSE_KEYS:
+        if key in params:
+            sd[key + ".weight"] = conv(params[key]["w"])
+            sd[key + ".bias"] = t(params[key]["b"])
+    for i, block in enumerate(params["blocks"]):
+        for j in range(3):
+            sd[f"{i}c{j}.weight"] = conv(block[f"c{j}"]["w"])
+            sd[f"{i}c{j}.bias"] = t(block[f"c{j}"]["b"])
+    if cfg.use_homogeneous:
+        # numpy float32 arithmetic, as the JAX package's writer computes them
+        max_scale = np.array([cfg.homogeneous_max_scale], np.float32)
+        min_scale = np.array([cfg.homogeneous_min_scale], np.float32)
+        h_beta = np.array([math.log(2.0) / (1.0 - 1.0 / max_scale[0])], np.float32)
+        for key, val in (("max_scale", max_scale), ("min_scale", min_scale),
+                         ("max_inv_scale", 1.0 / max_scale), ("h_beta", h_beta),
+                         ("min_inv_scale", 1.0 / min_scale)):
+            sd[key] = t(torch.from_numpy(val))
+    sd["mean"] = t(params["mean"]).reshape(1, 3, 1, 1)
+    return sd
+
+
+def save_head(path: str | Path, params: dict, cfg: HeadConfig, half: bool = True) -> None:
+    torch.save(export_head_state_dict(params, cfg, half=half), str(path))
+
+
+def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu", posenet_np: dict | None = None):
     """The JAX package's parameter trees (numpy arrays) in the port's layout:
-    HWIO convs become OIHW, dense layers stay (cin, cout). Either tree may be
-    None. Returns (encoder_params, head_params)."""
+    HWIO convs become OIHW, dense layers stay (cin, cout). Any tree may be
+    None. Returns (encoder_params, head_params), or (encoder_params,
+    head_params, posenet_params) when `posenet_np` is given."""
 
     def t(a):
         return torch.from_numpy(np.array(a, np.float32))
@@ -113,4 +154,7 @@ def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu")
             else:
                 head[key] = {"w": t(p["w"]), "b": t(p["b"])}
         head = _to(head, device)
-    return enc, head
+    if posenet_np is None:
+        return enc, head
+    posenet = _to({k: {"w": t(p["w"]), "b": t(p["b"])} for k, p in posenet_np.items()}, device)
+    return enc, head, posenet

@@ -10,16 +10,28 @@ it ends, with its wall seconds; the first failure raises and ends the run.
 
 Phases:
   0 device    the card, its power limit, the torch/CUDA versions
-  1 build     nvcc builds every kernel of the path from csrc/
+  1 build     nvcc builds every kernel of the paths from csrc/, in parallel
   2 kernels   each kernel against its plain PyTorch version on the card, at
-              the main path's shapes, with times (CUDA events, median)
+              the main paths' shapes, with times (CUDA events, median): K1
+              (head chain forward) and K2 (its backward), and the autograd
+              Function's weight gradients against autograd of the plain chain
   3 registrar ground-truth scene coordinates of the 60 chesslike_a frames
               (shipped depth + pose) -> the port's estimate_poses_batch
               recovers the shipped poses
   4 slice     the register CLI end to end on the 60 frames at 480x640 with
               the shipped encoder and head; kernel launch counts are zeroed
               just before and read just after
-  5 report    one JSON line describing every kernel, then the card's
+  5 mapping   the train CLI end to end on the 60 frames and their shipped
+              poses at full width (batch 5,120, 614,400 buffer rows): the
+              pipeline's mapping recipe, then the same schedule with the
+              poses held fixed, counts zeroed just before each run and read
+              just after; then the register CLI relocalizes the 60 frames
+              against the fixed-pose map
+  6 profile   where a mapping step's time goes, for each mapping run's
+              configuration: host ms per step over 30 unprofiled steps, then
+              device ms, kernels and the top device ops per step over 30
+              steps under torch.profiler
+  7 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 """
 
@@ -53,7 +65,43 @@ ONE_BLOCK_TAGS = (0, 0, 1, 0, 0, 1, 0, 0)
 # frames, num_head_blocks=1), a ragged B, and num_head_blocks 0 and 2
 K1_CASES = [("registration", 307_200, ONE_BLOCK_TAGS), ("ragged", 3 * 4800 + 37, ONE_BLOCK_TAGS),
             ("blocks0", 4800 * 4, (0, 0, 1, 0, 0)),
-            ("blocks2", 4800 * 4, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0))]
+            ("blocks2", 4800 * 4, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
+            ("mapping", 5120, ONE_BLOCK_TAGS)]
+K1_TIMED = ("registration", "mapping")  # the main paths' shapes, timed
+# K2 (the chain's backward): dx, gpre and acts_in against the plain version,
+# relative Frobenius. Both round to bf16 at the same points, but a tensor-core
+# sum and an IEEE f32 sum flip single bf16 roundings and, rarely, ReLU masks,
+# and the walk back compounds them over the layers. On these inputs, on an
+# H100, the plain version itself is 0.3-0.8% from the exact chain (f64 sums,
+# the same rounding points), and K2, bit-identical to the cuBLAS chain, is
+# 0.5-1.2% from it and 0.6-1.2% from the plain version, the most at L = 11.
+# A wrong kernel (transpose, mask, residual, ragged edge) is off by O(1).
+K2_TOL = 2e-2
+K2_GRAD_TOL = 2e-2  # dW, db of the autograd Function against autograd of the plain chain
+# the mapping shape (batch 5,120, num_head_blocks=1), a ragged B, and
+# num_head_blocks 0 and 2
+K2_CASES = [("mapping", 5120, ONE_BLOCK_TAGS), ("ragged", 5120 + 37, ONE_BLOCK_TAGS),
+            ("blocks0", 5120, (0, 0, 1, 0, 0)), ("blocks2", 5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0))]
+# phase mapping, two runs of the train CLI: the pipeline's mapping recipe
+# (AceZeroPipeline._base_train_cfg: 1cyclepoly at 0.003, tanh, MLP pose and
+# focal refinement), then the same schedule on the frames' fixed poses for the
+# map that must relocalize them (pose refinement moves and rescales the map's
+# frame as a whole, so a refined map is not in the shipped poses' frame).
+# Iteration budgets, warm-up and cooldown are cut to fit the phase.
+MAPPING_SCHEDULE = ["--learning_rate_schedule", "1cyclepoly", "--learning_rate_max", "0.003",
+                    "--repro_loss_type", "tanh"]
+MAPPING_RUNS = {
+    "recipe": MAPPING_SCHEDULE + ["--pose_refinement", "mlp", "--refine_calibration", "true",
+                                  "--iterations", "2000", "--learning_rate_warmup_iterations", "300",
+                                  "--learning_rate_cooldown_iterations", "500", "--iterations_output", "300"],
+    "fixed_poses": MAPPING_SCHEDULE + ["--iterations", "9000", "--learning_rate_warmup_iterations", "500",
+                                       "--learning_rate_cooldown_iterations", "1500", "--iterations_output", "1000"],
+}
+RELOC_SHARE = 0.5  # frames the fixed-pose map must relocalize within 5 cm / 5 deg
+# phase profile: warm-up and profiled steps at the mapping runs' full-size
+# configuration (TrainConfig / BufferConfig overrides, canvas short side)
+PROFILE_STEPS = (20, 30)
+PROFILE_TRAIN, PROFILE_BUFFER, PROFILE_SHORT_SIDE = {}, {}, 480
 FRAMES = "frame_*.png"
 N_FRAMES = 60
 DEVICE = "cuda"
@@ -139,6 +187,70 @@ def exact_chain(torch, x, w, b, tags):
     return chain(torch, x, tags, lambda h, l: (h.double() @ w[l].double() + b[l].double()).float())
 
 
+def k2_inputs(torch, B: int, tags, seed: int):
+    import numpy as np
+
+    x, w, b = k1_inputs(torch, B, tags, seed)
+    g = np.random.default_rng(seed + 100).normal(size=(B, 512)) * 1e-2
+    return x, w, b, torch.from_numpy(g.astype(np.float32)).to(DEVICE, torch.bfloat16)
+
+
+def chain_backward(torch, x, w, b, g, tags, pre, back):
+    """The chain's recompute-backward with `pre(h, l)` as layer l's f32
+    pre-activation and `back(gpre, l)` as the f32 product gpre @ W[l]^T:
+    (dx, gpre, acts_in) at the kernel's rounding points."""
+    acts, masks = [], []
+    res = h = x
+    for l, is_res in enumerate(tags):
+        acts.append(h)
+        p = pre(h, l)
+        masks.append(p > 0)
+        a = torch.relu(p).float().to(torch.bfloat16)
+        if is_res:
+            res = res + a
+            h = res
+        else:
+            h = a
+    g = g.to(torch.bfloat16)
+    g_res = torch.zeros_like(g)
+    gpre = [None] * len(tags)
+    for l in reversed(range(len(tags))):
+        if tags[l]:
+            g = g + g_res
+            g_res = g
+        gpre[l] = torch.where(masks[l], g, torch.zeros_like(g))
+        g = back(gpre[l], l).float().to(torch.bfloat16)
+    return g + g_res, torch.stack(gpre), torch.stack(acts)
+
+
+def library_chain_backward(torch, x, w, b, g, tags):
+    """K2's function as cuBLAS calls (bf16 tensor-core GEMMs with f32 output)
+    plus rounding, mask and residual bookkeeping. A yardstick only."""
+    return chain_backward(torch, x, w, b, g, tags,
+                          lambda h, l: torch.mm(h, w[l], out_dtype=torch.float32) + b[l],
+                          lambda gp, l: torch.mm(gp, w[l].t(), out_dtype=torch.float32))
+
+
+def exact_chain_backward(torch, x, w, b, g, tags):
+    """K2's function with f64 sums and the same bf16 rounding points."""
+    return chain_backward(torch, x, w, b, g, tags,
+                          lambda h, l: h.double() @ w[l].double() + b[l].double(),
+                          lambda gp, l: gp.double() @ w[l].double().t())
+
+
+def rel_err(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def k2_bound(B: int, L: int):
+    """Recompute forward + walk back: 4 B C^2 L operations; bytes: x, g, dx,
+    gpre and acts_in once each, W once (dW runs outside the kernel)."""
+    flops = 4.0 * B * 512 * 512 * L
+    nbytes = (3 * B * 512 + 2 * L * B * 512) * 2 + L * 512 * 512 * 2
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def k1_bound(B: int, L: int):
     flops = 2.0 * B * 512 * 512 * L
     nbytes = 2 * B * 512 * 2 + L * 512 * 512 * 2 + L * 512 * 4
@@ -168,17 +280,19 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from acezero_tpu_torch.cli import register_cli
+    from acezero_tpu_torch.cli import register_cli, train_ace_cli
     from acezero_tpu_torch.geometry import backproject_depth, get_pixel_grid
     from acezero_tpu_torch.io.pose_files import read_pose_file
     from acezero_tpu_torch.models import torch_io
     from acezero_tpu_torch.models.encoder import encoder_apply
-    from acezero_tpu_torch.models.head import head_apply_flat, head_epilogue
+    from acezero_tpu_torch.models.head import HeadConfig, head_apply_flat, head_epilogue
     from acezero_tpu_torch.ops import build
     from acezero_tpu_torch.ops import fused_head as fh
     from acezero_tpu_torch.registration.driver import _canvas_prologue
     from acezero_tpu_torch.registration.ransac import RansacConfig, estimate_poses_batch
     from acezero_tpu_torch.data.scene import load_scene
+    from acezero_tpu_torch.training import BufferConfig, MappingTrainer, ReproLossConfig, ScheduleConfig, TrainConfig
+    from acezero_tpu_torch.training.trainer import train_hp, train_steps
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -192,10 +306,11 @@ def main() -> int:
 
     with phase("build", {}) as rec:
         t0 = time.perf_counter()
-        build.build([fh.KERNEL])
+        build.build([fh.KERNEL, fh.KERNEL_BWD])
         rec["seconds_nvcc"] = time.perf_counter() - t0
-        log = build.build_info[fh.KERNEL]["log"]
-        rec["ptxas"] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:6]
+        for name in (fh.KERNEL, fh.KERNEL_BWD):
+            log = build.build_info[name]["log"]
+            rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:6]
 
     k1 = {}
     with phase("kernels", {}) as rec:
@@ -212,14 +327,57 @@ def main() -> int:
                      "finite": bool(torch.isfinite(out.float()).all())}
             results.append(entry)
             require(entry["finite"] and rel <= K1_TOL, f"K1 {name}: rel err {rel} > {K1_TOL}")
-            if i == 0:
+            if name in K1_TIMED:
                 entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain(x, w, b, tags), torch)
                 entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_plain(x, w, b, tags), torch)
                 entry["library_ms"] = time_ms(lambda: library_chain(torch, x, w, b, tags), torch)
                 entry["bound_ms"], entry["bound_by"] = k1_bound(B, len(tags))
-                k1 = entry
+                k1[name] = entry
             del x, w, b, out, ref, diff
         rec["cases"] = results
+
+        k2 = {}
+        results = []
+        for i, (name, B, tags) in enumerate(K2_CASES):
+            x, w, b, g = k2_inputs(torch, B, tags, seed=10 + i)
+            out = fh.fused_head_chain_backward(x, w, b, g, tags)
+            torch.cuda.synchronize()
+            ref = fh.fused_head_chain_backward_plain(x, w, b, g, tags)
+            exact = exact_chain_backward(torch, x, w, b, g, tags)
+            entry = {"case": name, "B": B, "L": len(tags),
+                     "finite": all(bool(torch.isfinite(t.float()).all()) for t in out)}
+            for k, o, r, e in zip(("dx", "gpre", "acts_in"), out, ref, exact):
+                entry[f"rel_err_{k}"] = rel_err(o, r)
+                entry[f"rel_err_{k}_vs_exact"] = rel_err(o, e)
+                entry[f"plain_rel_err_{k}_vs_exact"] = rel_err(r, e)
+            entry["max_abs_err"] = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
+            entry["rel_err"] = max(entry[f"rel_err_{k}"] for k in ("dx", "gpre", "acts_in"))
+            # the autograd Function's dW, db against autograd of the plain chain
+            grads = []
+            for fn in (lambda *a: fh.FusedHeadChain.apply(*a, tags), lambda *a: fh.fused_head_chain_plain(*a, tags)):
+                wf = w.float().requires_grad_(True)
+                bf = b.clone().requires_grad_(True)
+                (fn(x, wf, bf).float() * g.float()).sum().backward()
+                grads.append((wf.grad, bf.grad))
+            entry["rel_err_dW"] = rel_err(grads[0][0], grads[1][0])
+            entry["rel_err_db"] = rel_err(grads[0][1], grads[1][1])
+            results.append(entry)
+            require(entry["finite"] and entry["rel_err"] <= K2_TOL,
+                    f"K2 {name}: rel err {entry['rel_err']} > {K2_TOL}")
+            require(entry["rel_err_dW"] <= K2_GRAD_TOL and entry["rel_err_db"] <= K2_GRAD_TOL,
+                    f"K2 {name}: dW/db rel err {entry['rel_err_dW']}/{entry['rel_err_db']} > {K2_GRAD_TOL}")
+            if i == 0:
+                lib = library_chain_backward(torch, x, w, b, g, tags)
+                entry["rel_err_dx_vs_library"] = rel_err(out[0], lib[0])
+                entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain_backward(x, w, b, g, tags), torch)
+                entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_backward_plain(x, w, b, g, tags), torch)
+                entry["library_ms"] = time_ms(lambda: library_chain_backward(torch, x, w, b, g, tags), torch)
+                entry["weight_grads_ms"] = time_ms(lambda: fh.chain_weight_grads(out[1], out[2]), torch)
+                entry["bound_ms"], entry["bound_by"] = k2_bound(B, len(tags))
+                k2 = entry
+                del lib
+            del x, w, b, g, out, ref, exact, grads
+        rec["k2_cases"] = results
         torch.cuda.empty_cache()
 
     with phase("registrar", {}) as rec:
@@ -270,12 +428,13 @@ def main() -> int:
             shutil.copy(HEAD, net)
             argv = [str(SCENE / FRAMES), str(net), "--encoder_path", str(ENCODER),
                     "--use_external_focal_length", str(FOCAL), "--session", "smoke", "--device", DEVICE]
-            fh.LAUNCHES = 0
+            fh.LAUNCHES = fh.LAUNCHES_BWD = 0
             t0 = time.perf_counter()
             rc = register_cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = fh.LAUNCHES
+            require(fh.LAUNCHES_BWD == 0, "registration launched the backward kernel")
             require(rc == 0, f"register_cli returned {rc}")
             lines = (Path(tmp) / "poses_smoke.txt").read_text().splitlines()
             entries = read_pose_file(Path(tmp) / "poses_smoke.txt")
@@ -345,6 +504,101 @@ def main() -> int:
                 f"K1 coordinates differ from the exact chain in {k1_exact['cells_differing']:.2%} of cells")
         require(k1_exact["rel_err"] <= 2**-9, f"K1 coordinates: relative error {k1_exact['rel_err']}")
 
+    with phase("mapping", {}) as rec:
+        gts = {f: np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in sorted(glob.glob(str(SCENE / FRAMES)))}
+
+        def pose_errors(entries):
+            r = [rot_err_deg(np, e.pose_c2w[:3, :3], gts[e.rgb_file][:3, :3]) for e in entries]
+            t = [float(np.linalg.norm(e.pose_c2w[:3, 3] - gts[e.rgb_file][:3, 3])) for e in entries]
+            return r, t
+
+        map_launches = {"fwd": 0, "bwd": 0}
+        rec.update(kind=kind, nvidia_smi=smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, extra in MAPPING_RUNS.items():
+                net = Path(tmp) / f"{name}.pt"
+                argv = [str(SCENE / FRAMES), str(net), "--pose_files", str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                        "--use_external_focal_length", str(FOCAL), "--encoder_path", str(ENCODER),
+                        "--device", DEVICE, *extra]
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = time.perf_counter()
+                result = train_ace_cli.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                fwd, bwd = fh.LAUNCHES, fh.LAUNCHES_BWD
+                map_launches["fwd"] += fwd
+                map_launches["bwd"] += bwd
+                prelim_path = Path(tmp) / f"poses_{name}_preliminary.txt"
+                prelim = prelim_path.read_text().splitlines()
+                prelim_r, prelim_t = pose_errors(read_pose_file(prelim_path))
+                log = result["log"]
+                steps = result["steps"]
+                rec[name] = {
+                    "cli_seconds": wall, "fill_seconds": result["fill_time"], "train_seconds": result["train_time"],
+                    "steps": steps, "iterations": result["iterations"], "steps_per_s": steps / result["train_time"],
+                    "buffer_rows": result["buffer_rows"], "fused_head_fwd_launches": fwd,
+                    "fused_head_bwd_launches": bwd, "first_log": log[0] if log else None,
+                    "last_log": log[-1] if log else None, "log": log, "focal_refined": result["focal_orig"],
+                    "prelim_median_rot_deg": statistics.median(prelim_r),
+                    "prelim_median_trans_mm": statistics.median(prelim_t) * 1e3,
+                }
+                require(bwd == steps, f"{name}: K2 launched {bwd} times for {steps} steps")
+                require(fwd >= steps, f"{name}: K1 launched {fwd} times for {steps} steps")
+                require(len(log) >= 2 and all(np.isfinite(e["loss"]) for e in log), f"{name}: missing or non-finite losses")
+                require(log[-1]["loss"] < log[0]["loss"], f"{name}: loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
+                require(len(prelim) == N_FRAMES and all(len(ln.split()) == 10 for ln in prelim),
+                        f"{name}: preliminary pose file is not {N_FRAMES} lines of 10 tokens")
+
+            # relocalize the 60 frames against the map trained on their poses
+            argv = [str(SCENE / FRAMES), str(Path(tmp) / "fixed_poses.pt"), "--encoder_path", str(ENCODER),
+                    "--use_external_focal_length", str(FOCAL), "--session", "reloc", "--device", DEVICE]
+            t0 = time.perf_counter()
+            require(register_cli.main(argv) == 0, "register_cli failed on the trained map")
+            entries = read_pose_file(Path(tmp) / "poses_reloc.txt")
+            rec["reloc_seconds"] = time.perf_counter() - t0
+        r_err, t_err = pose_errors(entries)
+        good = sum(1 for a, t in zip(r_err, t_err) if a <= 5.0 and t <= 0.05)
+        rec.update(reloc_frames=len(entries), reloc_within_5cm_5deg=good,
+                   reloc_median_rot_deg=statistics.median(r_err), reloc_median_trans_mm=statistics.median(t_err) * 1e3,
+                   reloc_inliers_median=statistics.median(e.confidence for e in entries))
+        require(len(entries) == N_FRAMES, f"registered {len(entries)} of {N_FRAMES} frames")
+        require(good >= RELOC_SHARE * N_FRAMES,
+                f"the trained map relocalizes {good} of {N_FRAMES} frames within 5 cm / 5 deg")
+
+    with phase("profile", {}) as rec:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        scene = load_scene(str(SCENE / FRAMES), pose_files=str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                           external_focal_length=FOCAL, image_short_size=PROFILE_SHORT_SIDE)
+        enc = torch_io.load_encoder(ENCODER, DEVICE)
+        warm, n = PROFILE_STEPS
+        for name, refine in (("recipe", True), ("fixed_poses", False)):
+            cfg = TrainConfig(schedule=ScheduleConfig(learning_rate_max=0.003), loss=ReproLossConfig(loss_type="tanh"),
+                              pose_refinement="mlp" if refine else "none", refine_calibration=refine, **PROFILE_TRAIN)
+            trainer = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(**PROFILE_BUFFER))
+            buffer = trainer.build_buffer()
+            state = trainer.build_state()
+            hp = train_hp(cfg)
+            state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), warm, generator=trainer.generator)
+            # host time per step without the profiler (its start-up and
+            # bookkeeping slow the host), device time per step under it
+            t0 = synced_clock(torch)
+            state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), n, generator=trainer.generator)
+            host_ms = (synced_clock(torch) - t0) / n * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), n, generator=trainer.generator)
+                torch.cuda.synchronize()
+            # kernel events only: the CPU ops that launched them carry the same time
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+            rec[name] = {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+                         "device_busy_share": device_ms / host_ms,
+                         "kernels_per_step": sum(e.count for e in events) / n,
+                         "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / n for e in top}}
+            del trainer, buffer, state
+
     with phase("report", {}):
         emit(kernels=[{
             "name": "fused_head_fwd",
@@ -352,16 +606,36 @@ def main() -> int:
             "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
             "replaces": "acezero_tpu/ops/fused_head.py:108",
             "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-            "launches": launches,
-            "max_abs_err": k1["max_abs_err"],
-            "rel_err": k1["rel_err"],
-            "ms": k1["kernel_ms"],
-            "kernel_ms": k1["kernel_ms"],
-            "plain_ms": k1["plain_ms"],
-            "bound_ms": k1["bound_ms"],
-            "bound_by": k1["bound_by"],
-            "library_ms": k1["library_ms"],
-            "shape": {"B": k1["B"], "L": k1["L"]},
+            "launches": launches + map_launches["fwd"],
+            "launches_by_path": {"register": launches, "mapping": map_launches["fwd"]},
+            "max_abs_err": k1["registration"]["max_abs_err"],
+            "rel_err": k1["registration"]["rel_err"],
+            "ms": k1["registration"]["kernel_ms"],
+            "kernel_ms": k1["registration"]["kernel_ms"],
+            "plain_ms": k1["registration"]["plain_ms"],
+            "bound_ms": k1["registration"]["bound_ms"],
+            "bound_by": k1["registration"]["bound_by"],
+            "library_ms": k1["registration"]["library_ms"],
+            "shape": {"B": k1["registration"]["B"], "L": k1["registration"]["L"]},
+            "mapping_shape": {k: k1["mapping"][k] for k in ("B", "L", "kernel_ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "bound_by", "rel_err")},
+        }, {
+            "name": "fused_head_bwd",
+            "route": "cuda",
+            "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
+            "replaces": "acezero_tpu/ops/fused_head.py:112",
+            "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
+            "launches": map_launches["bwd"],
+            "launches_by_path": {"register": 0, "mapping": map_launches["bwd"]},
+            "max_abs_err": k2["max_abs_err"],
+            "rel_err": k2["rel_err"],
+            "ms": k2["kernel_ms"],
+            "kernel_ms": k2["kernel_ms"],
+            "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"],
+            "bound_by": k2["bound_by"],
+            "library_ms": k2["library_ms"],
+            "shape": {"B": k2["B"], "L": k2["L"]},
         }])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

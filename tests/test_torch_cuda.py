@@ -42,3 +42,38 @@ def test_fused_head_fwd_matches_plain(cuda, B, tags):
         ref = fh.fused_head_chain_plain(x, w, b, tags).float()
     rel = float((out.float() - ref).norm() / ref.norm())
     assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("B,tags", [(5120, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (5120 + 37, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (5120, (0, 0, 1, 0, 0)),
+                                    (5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0))])
+def test_fused_head_bwd_matches_plain(cuda, B, tags):
+    """K2 against its plain version: relative Frobenius 2e-2 (chip_smoke.py
+    K2_TOL: tensor-core and IEEE sums flip single bf16 roundings and, rarely,
+    ReLU masks, compounded over the walk back); the Function's dW, db against
+    autograd of the plain chain at 2e-2."""
+    rng = np.random.default_rng(B + len(tags))
+    L = len(tags)
+    x = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32) * 0.5).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.uniform(-1, 1, (L, 512, 512)).astype(np.float32) / 512**0.5).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.uniform(-1, 1, (L, 512)).astype(np.float32) / 512**0.5).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32) * 1e-2).to(cuda, torch.bfloat16)
+    before = fh.LAUNCHES_BWD
+    out = fh.fused_head_chain_backward(x, w, b, g, tags)
+    torch.cuda.synchronize()
+    assert fh.LAUNCHES_BWD == before + 1
+    with no_tf32():
+        ref = fh.fused_head_chain_backward_plain(x, w, b, g, tags)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == torch.bfloat16
+        assert float((o.float() - r.float()).norm() / r.float().norm()) <= 2e-2
+    grads = []
+    for fn in (lambda *a: fh.FusedHeadChain.apply(*a, tags), lambda *a: fh.fused_head_chain_plain(*a, tags)):
+        wf = w.float().requires_grad_(True)
+        bf = b.clone().requires_grad_(True)
+        with no_tf32():
+            (fn(x, wf, bf).float() * g.float()).sum().backward()
+        grads.append((wf.grad, bf.grad))
+    for got, want in zip(*grads):
+        assert float((got - want).norm() / want.norm()) <= 2e-2
