@@ -24,6 +24,7 @@ from acezero_tpu_torch.ops import build
 KERNEL = "fused_head_fwd"
 KERNEL_BWD = "fused_head_bwd"
 CHANNELS = 512
+TILE_ROWS = 64  # rows of x per block of the backward kernel
 
 # Kernel launches made by `fused_head_chain` / `fused_head_chain_backward`
 # in this process.
@@ -207,7 +208,8 @@ def fused_head_chain_backward(x, w_stack, b_stack, g, res_after):
     dx = torch.empty_like(x)
     gpre = torch.empty((L, B, CHANNELS), dtype=torch.bfloat16, device=x.device)
     acts_in = torch.empty_like(gpre)
-    masks = torch.empty((L, B, CHANNELS // 8), dtype=torch.uint8, device=x.device)
+    # the kernel's private ReLU-mask scratch: 512 bits per row of each 64-row tile
+    masks = torch.empty((L, -(-B // TILE_ROWS) * TILE_ROWS, CHANNELS // 8), dtype=torch.uint8, device=x.device)
     tags = (ctypes.c_int * L)(*[int(bool(t)) for t in res_after])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -218,6 +220,20 @@ def fused_head_chain_backward(x, w_stack, b_stack, g, res_after):
     global LAUNCHES_BWD
     LAUNCHES_BWD += 1
     return dx, gpre, acts_in
+
+
+def backward_kernel_info() -> dict:
+    """The backward kernel's resources as the card reports them (builds the
+    kernel on first use): dynamic shared bytes, threads, rows per tile,
+    registers and local (stack and spill) bytes per thread."""
+    fn = build.load(KERNEL_BWD).fused_head_bwd_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 5)()
+    rc = fn(info)
+    if rc != 0:
+        raise RuntimeError(f"{KERNEL_BWD}_info failed: CUDA error {rc}")
+    return dict(zip(("smem_bytes", "threads", "tile_rows", "registers", "local_bytes"), info))
 
 
 def chain_weight_grads(gpre, acts_in):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (acezero_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # every phase
+    python3 chip_smoke.py --phases build,kernels   # a subset, in the order below
 
 Needs one NVIDIA card (Hopper, for the sm_90a kernels) and nvcc; exits
 non-zero without a result when CUDA is absent or the port is not beside
@@ -33,10 +34,15 @@ Phases:
               steps under torch.profiler
   7 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
+
+Phase `device` always runs (it turns TF32 off for the comparisons). With a
+subset the report carries null for what the skipped phases measure, and the
+status line is printed all the same.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import glob
 import json
@@ -54,6 +60,8 @@ SCENE = ROOT / "results" / "heldout" / "scenes" / "chesslike_a"
 ENCODER = ROOT / "weights" / "tpu_encoder_v6.pt"
 HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
+
+PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "profile", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -80,8 +88,16 @@ K2_TOL = 2e-2
 K2_GRAD_TOL = 2e-2  # dW, db of the autograd Function against autograd of the plain chain
 # the mapping shape (batch 5,120, num_head_blocks=1), a ragged B, and
 # num_head_blocks 0 and 2
+# num_head_blocks 0 and 2; the tile edges (one row, one full tile, one row
+# past it); one layer with and without the residual join (the walk back
+# starts on a residual layer only there); and a full card (one 64-row tile
+# per SM of an H100), timed with B = 64 to tell the fill from the per-tile
+# pipeline
 K2_CASES = [("mapping", 5120, ONE_BLOCK_TAGS), ("ragged", 5120 + 37, ONE_BLOCK_TAGS),
-            ("blocks0", 5120, (0, 0, 1, 0, 0)), ("blocks2", 5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0))]
+            ("blocks0", 5120, (0, 0, 1, 0, 0)), ("blocks2", 5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
+            ("B1", 1, ONE_BLOCK_TAGS), ("B64", 64, ONE_BLOCK_TAGS), ("B65", 65, ONE_BLOCK_TAGS),
+            ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", 132 * 64, ONE_BLOCK_TAGS)]
+K2_TIMED = ("mapping", "B64", "fill132")  # kernel_ms of each; plain and library at the mapping shape
 # phase mapping, two runs of the train CLI: the pipeline's mapping recipe
 # (AceZeroPipeline._base_train_cfg: 1cyclepoly at 0.003, tanh, MLP pose and
 # focal refinement), then the same schedule on the frames' fixed poses for the
@@ -148,6 +164,26 @@ def time_ms(fn, torch, warmup: int = 3, reps: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def stream_ms(fn, torch, launches: int = 20, reps: int = 5) -> float:
+    """Median over `reps` of the CUDA-event time of `launches` back-to-back
+    calls, per call: the device's time with the host's launch cost hidden
+    (time_ms, one call between two events, counts the host's time to launch
+    where the device waits for it)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -267,7 +303,22 @@ def rot_err_deg(np, Ra, Rb) -> float:
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1) / 2, -1, 1))))
 
 
-def main() -> int:
+def parse_phases(argv) -> list[str]:
+    """The phases to run, in PHASES order, `device` always among them. An
+    unknown name is an error (argparse exits with status 2)."""
+    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    args = ap.parse_args(argv)
+    names = {p.strip() for p in args.phases.split(",") if p.strip()}
+    unknown = sorted(names - set(PHASES))
+    if unknown or not names:
+        ap.error(f"unknown phase(s) {unknown}; choose from {','.join(PHASES)}")
+    return [p for p in PHASES if p in names or p == "device"]
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -304,339 +355,357 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    with phase("build", {}) as rec:
-        t0 = time.perf_counter()
-        build.build([fh.KERNEL, fh.KERNEL_BWD])
-        rec["seconds_nvcc"] = time.perf_counter() - t0
-        for name in (fh.KERNEL, fh.KERNEL_BWD):
-            log = build.build_info[name]["log"]
-            rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:6]
-
-    k1 = {}
-    with phase("kernels", {}) as rec:
-        results = []
-        for i, (name, B, tags) in enumerate(K1_CASES):
-            x, w, b = k1_inputs(torch, B, tags, seed=i)
-            out = fh.fused_head_chain(x, w, b, tags)
-            torch.cuda.synchronize()
-            ref = fh.fused_head_chain_plain(x, w, b, tags).float()
-            diff = out.float() - ref
-            rel = float(diff.norm() / ref.norm())
-            entry = {"case": name, "B": B, "L": len(tags), "rel_err": rel,
-                     "max_abs_err": float(diff.abs().max()),
-                     "finite": bool(torch.isfinite(out.float()).all())}
-            results.append(entry)
-            require(entry["finite"] and rel <= K1_TOL, f"K1 {name}: rel err {rel} > {K1_TOL}")
-            if name in K1_TIMED:
-                entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain(x, w, b, tags), torch)
-                entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_plain(x, w, b, tags), torch)
-                entry["library_ms"] = time_ms(lambda: library_chain(torch, x, w, b, tags), torch)
-                entry["bound_ms"], entry["bound_by"] = k1_bound(B, len(tags))
-                k1[name] = entry
-            del x, w, b, out, ref, diff
-        rec["cases"] = results
-
-        k2 = {}
-        results = []
-        for i, (name, B, tags) in enumerate(K2_CASES):
-            x, w, b, g = k2_inputs(torch, B, tags, seed=10 + i)
-            out = fh.fused_head_chain_backward(x, w, b, g, tags)
-            torch.cuda.synchronize()
-            ref = fh.fused_head_chain_backward_plain(x, w, b, g, tags)
-            exact = exact_chain_backward(torch, x, w, b, g, tags)
-            entry = {"case": name, "B": B, "L": len(tags),
-                     "finite": all(bool(torch.isfinite(t.float()).all()) for t in out)}
-            for k, o, r, e in zip(("dx", "gpre", "acts_in"), out, ref, exact):
-                entry[f"rel_err_{k}"] = rel_err(o, r)
-                entry[f"rel_err_{k}_vs_exact"] = rel_err(o, e)
-                entry[f"plain_rel_err_{k}_vs_exact"] = rel_err(r, e)
-            entry["max_abs_err"] = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
-            entry["rel_err"] = max(entry[f"rel_err_{k}"] for k in ("dx", "gpre", "acts_in"))
-            # the autograd Function's dW, db against autograd of the plain chain
-            grads = []
-            for fn in (lambda *a: fh.FusedHeadChain.apply(*a, tags), lambda *a: fh.fused_head_chain_plain(*a, tags)):
-                wf = w.float().requires_grad_(True)
-                bf = b.clone().requires_grad_(True)
-                (fn(x, wf, bf).float() * g.float()).sum().backward()
-                grads.append((wf.grad, bf.grad))
-            entry["rel_err_dW"] = rel_err(grads[0][0], grads[1][0])
-            entry["rel_err_db"] = rel_err(grads[0][1], grads[1][1])
-            results.append(entry)
-            require(entry["finite"] and entry["rel_err"] <= K2_TOL,
-                    f"K2 {name}: rel err {entry['rel_err']} > {K2_TOL}")
-            require(entry["rel_err_dW"] <= K2_GRAD_TOL and entry["rel_err_db"] <= K2_GRAD_TOL,
-                    f"K2 {name}: dW/db rel err {entry['rel_err_dW']}/{entry['rel_err_db']} > {K2_GRAD_TOL}")
-            if i == 0:
-                lib = library_chain_backward(torch, x, w, b, g, tags)
-                entry["rel_err_dx_vs_library"] = rel_err(out[0], lib[0])
-                entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain_backward(x, w, b, g, tags), torch)
-                entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_backward_plain(x, w, b, g, tags), torch)
-                entry["library_ms"] = time_ms(lambda: library_chain_backward(torch, x, w, b, g, tags), torch)
-                entry["weight_grads_ms"] = time_ms(lambda: fh.chain_weight_grads(out[1], out[2]), torch)
-                entry["bound_ms"], entry["bound_by"] = k2_bound(B, len(tags))
-                k2 = entry
-                del lib
-            del x, w, b, g, out, ref, exact, grads
-        rec["k2_cases"] = results
-        torch.cuda.empty_cache()
-
-    with phase("registrar", {}) as rec:
-        frames = sorted(glob.glob(str(SCENE / FRAMES)))
-        require(len(frames) == N_FRAMES, f"expected {N_FRAMES} chesslike_a frames, found {len(frames)}")
-        grid = get_pixel_grid(60, 80, 8, device=DEVICE)
-        coords, masks, gts = [], [], []
-        for f in frames:
-            stem = f[: -len(".png")]
-            depth = torch.from_numpy(np.load(stem + "_depth.npy")[4::8, 4::8].astype(np.float32)).to(DEVICE)
-            gt = np.loadtxt(stem + "_pose.txt")
-            gts.append(gt)
-            pose = torch.from_numpy(gt.astype(np.float32)).to(DEVICE)
-            coords.append(backproject_depth(depth, FOCAL, 320.0, 240.0, pose, grid))
-            masks.append((depth > 0) & (depth <= 1000.0))
-        n = len(frames)
-        t0 = time.perf_counter()
-        out = estimate_poses_batch(
-            torch.stack(coords), torch.stack(masks), grid, torch.full((n,), FOCAL, device=DEVICE),
-            torch.full((n,), 320.0, device=DEVICE), torch.full((n,), 240.0, device=DEVICE),
-            RansacConfig(), generator=torch.Generator(device=DEVICE).manual_seed(1305))
-        torch.cuda.synchronize()
-        rec["estimate_seconds"] = time.perf_counter() - t0
-        poses = out["pose_c2w"].double().cpu().numpy()
-        r_err = [rot_err_deg(np, poses[i, :3, :3], gts[i][:3, :3]) for i in range(n)]
-        t_err = [float(np.linalg.norm(poses[i, :3, 3] - gts[i][:3, 3])) for i in range(n)]
-        rec.update(frames=n, valid=int(out["valid"].sum()), median_rot_deg=statistics.median(r_err),
-                   median_trans_mm=statistics.median(t_err) * 1e3, max_rot_deg=max(r_err),
-                   max_trans_mm=max(t_err) * 1e3)
-        require(bool(out["valid"].all()), "a frame had no valid hypothesis")
-        require(rec["median_rot_deg"] <= 0.1, f"median rotation error {rec['median_rot_deg']} deg")
-        require(rec["median_trans_mm"] <= 2.0, f"median translation error {rec['median_trans_mm']} mm")
-
-    with phase("slice", {}) as rec:
-        class Capture(logging.Handler):
-            def __init__(self):
-                super().__init__()
-                self.registered = None
-
-            def emit(self, record):
-                if record.msg.startswith("Registered %d frames in"):
-                    self.registered = record.args
-
-        cap = Capture()
-        logging.getLogger("acezero_tpu_torch.registration.driver").addHandler(cap)
-        with tempfile.TemporaryDirectory() as tmp:
-            net = Path(tmp) / "iteration2.pt"
-            shutil.copy(HEAD, net)
-            argv = [str(SCENE / FRAMES), str(net), "--encoder_path", str(ENCODER),
-                    "--use_external_focal_length", str(FOCAL), "--session", "smoke", "--device", DEVICE]
-            fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+    if "build" in phases:
+        with phase("build", {}) as rec:
             t0 = time.perf_counter()
-            rc = register_cli.main(argv)
+            build.build([fh.KERNEL, fh.KERNEL_BWD])
+            rec["seconds_nvcc"] = time.perf_counter() - t0
+            for name in (fh.KERNEL, fh.KERNEL_BWD):
+                log = build.build_info[name]["log"]
+                rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
+                                        if "registers" in ln or "spill" in ln or "warpgroup" in ln or "wgmma" in ln][:8]
+
+    k1, k2 = {}, {}  # timed cases, by name
+    launches = map_launches = None  # launch counts of phases slice and mapping
+    if "kernels" in phases:
+        with phase("kernels", {}) as rec:
+            results = []
+            for i, (name, B, tags) in enumerate(K1_CASES):
+                x, w, b = k1_inputs(torch, B, tags, seed=i)
+                out = fh.fused_head_chain(x, w, b, tags)
+                torch.cuda.synchronize()
+                ref = fh.fused_head_chain_plain(x, w, b, tags).float()
+                diff = out.float() - ref
+                rel = float(diff.norm() / ref.norm())
+                entry = {"case": name, "B": B, "L": len(tags), "rel_err": rel,
+                         "max_abs_err": float(diff.abs().max()),
+                         "finite": bool(torch.isfinite(out.float()).all())}
+                results.append(entry)
+                require(entry["finite"] and rel <= K1_TOL, f"K1 {name}: rel err {rel} > {K1_TOL}")
+                if name in K1_TIMED:
+                    entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain(x, w, b, tags), torch)
+                    entry["kernel_ms_stream"] = stream_ms(lambda: fh.fused_head_chain(x, w, b, tags), torch)
+                    entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_plain(x, w, b, tags), torch)
+                    entry["library_ms"] = time_ms(lambda: library_chain(torch, x, w, b, tags), torch)
+                    entry["bound_ms"], entry["bound_by"] = k1_bound(B, len(tags))
+                    k1[name] = entry
+                del x, w, b, out, ref, diff
+            rec["cases"] = results
+
+            results = []
+            info = fh.backward_kernel_info()
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            rec["k2_resources"] = {**info, "sms": sms}
+            for i, (name, B, tags) in enumerate(K2_CASES):
+                x, w, b, g = k2_inputs(torch, B, tags, seed=10 + i)
+                out = fh.fused_head_chain_backward(x, w, b, g, tags)
+                torch.cuda.synchronize()
+                ref = fh.fused_head_chain_backward_plain(x, w, b, g, tags)
+                exact = exact_chain_backward(torch, x, w, b, g, tags)
+                entry = {"case": name, "B": B, "L": len(tags),
+                         "finite": all(bool(torch.isfinite(t.float()).all()) for t in out)}
+                for k, o, r, e in zip(("dx", "gpre", "acts_in"), out, ref, exact):
+                    entry[f"rel_err_{k}"] = rel_err(o, r)
+                    entry[f"rel_err_{k}_vs_exact"] = rel_err(o, e)
+                    entry[f"plain_rel_err_{k}_vs_exact"] = rel_err(r, e)
+                entry["max_abs_err"] = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
+                entry["rel_err"] = max(entry[f"rel_err_{k}"] for k in ("dx", "gpre", "acts_in"))
+                # the autograd Function's dW, db against autograd of the plain chain
+                grads = []
+                for fn in (lambda *a: fh.FusedHeadChain.apply(*a, tags), lambda *a: fh.fused_head_chain_plain(*a, tags)):
+                    wf = w.float().requires_grad_(True)
+                    bf = b.clone().requires_grad_(True)
+                    (fn(x, wf, bf).float() * g.float()).sum().backward()
+                    grads.append((wf.grad, bf.grad))
+                entry["rel_err_dW"] = rel_err(grads[0][0], grads[1][0])
+                entry["rel_err_db"] = rel_err(grads[0][1], grads[1][1])
+                results.append(entry)
+                require(entry["finite"] and entry["rel_err"] <= K2_TOL,
+                        f"K2 {name}: rel err {entry['rel_err']} > {K2_TOL}")
+                require(entry["rel_err_dW"] <= K2_GRAD_TOL and entry["rel_err_db"] <= K2_GRAD_TOL,
+                        f"K2 {name}: dW/db rel err {entry['rel_err_dW']}/{entry['rel_err_db']} > {K2_GRAD_TOL}")
+                if name in K2_TIMED:
+                    entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain_backward(x, w, b, g, tags), torch)
+                    entry["kernel_ms_stream"] = stream_ms(lambda: fh.fused_head_chain_backward(x, w, b, g, tags), torch)
+                    entry["bound_ms"], entry["bound_by"] = k2_bound(B, len(tags))
+                    tiles = -(-B // info["tile_rows"])
+                    entry.update(tflops=4.0 * B * 512**2 * len(tags) / (entry["kernel_ms"] * 1e-3) / 1e12,
+                                 tflops_stream=4.0 * B * 512**2 * len(tags) / (entry["kernel_ms_stream"] * 1e-3) / 1e12,
+                                 smem_bytes=info["smem_bytes"], tiles=tiles, sm_fill=tiles / sms,
+                                 ms_per_tile_wave=entry["kernel_ms"] / -(-tiles // sms))
+                    k2[name] = entry
+                if name == "mapping":
+                    lib = library_chain_backward(torch, x, w, b, g, tags)
+                    entry["rel_err_dx_vs_library"] = rel_err(out[0], lib[0])
+                    entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_backward_plain(x, w, b, g, tags), torch)
+                    entry["library_ms"] = time_ms(lambda: library_chain_backward(torch, x, w, b, g, tags), torch)
+                    entry["weight_grads_ms"] = time_ms(lambda: fh.chain_weight_grads(out[1], out[2]), torch)
+                    del lib
+                del x, w, b, g, out, ref, exact, grads
+            rec["k2_cases"] = results
+            torch.cuda.empty_cache()
+
+    if "registrar" in phases:
+        with phase("registrar", {}) as rec:
+            frames = sorted(glob.glob(str(SCENE / FRAMES)))
+            require(len(frames) == N_FRAMES, f"expected {N_FRAMES} chesslike_a frames, found {len(frames)}")
+            grid = get_pixel_grid(60, 80, 8, device=DEVICE)
+            coords, masks, gts = [], [], []
+            for f in frames:
+                stem = f[: -len(".png")]
+                depth = torch.from_numpy(np.load(stem + "_depth.npy")[4::8, 4::8].astype(np.float32)).to(DEVICE)
+                gt = np.loadtxt(stem + "_pose.txt")
+                gts.append(gt)
+                pose = torch.from_numpy(gt.astype(np.float32)).to(DEVICE)
+                coords.append(backproject_depth(depth, FOCAL, 320.0, 240.0, pose, grid))
+                masks.append((depth > 0) & (depth <= 1000.0))
+            n = len(frames)
+            t0 = time.perf_counter()
+            out = estimate_poses_batch(
+                torch.stack(coords), torch.stack(masks), grid, torch.full((n,), FOCAL, device=DEVICE),
+                torch.full((n,), 320.0, device=DEVICE), torch.full((n,), 240.0, device=DEVICE),
+                RansacConfig(), generator=torch.Generator(device=DEVICE).manual_seed(1305))
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = fh.LAUNCHES
-            require(fh.LAUNCHES_BWD == 0, "registration launched the backward kernel")
-            require(rc == 0, f"register_cli returned {rc}")
-            lines = (Path(tmp) / "poses_smoke.txt").read_text().splitlines()
-            entries = read_pose_file(Path(tmp) / "poses_smoke.txt")
-        require(launches > 0, "the main path never launched fused_head_fwd")
-        require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
-                f"pose file is not {N_FRAMES} lines of 10 tokens")
-        require(all(np.isfinite(e.pose_w2c).all() for e in entries), "non-finite pose")
-        reg_seconds = cap.registered[1] if cap.registered else float("nan")
-        rec.update(cli_seconds=wall, register_seconds=reg_seconds, frames=len(entries),
-                   frames_per_s=len(entries) / reg_seconds, cli_frames_per_s=len(entries) / wall,
-                   fused_head_fwd_launches=launches, kind=kind, nvidia_smi=smi,
-                   inliers_median=statistics.median(e.confidence for e in entries))
+            rec["estimate_seconds"] = time.perf_counter() - t0
+            poses = out["pose_c2w"].double().cpu().numpy()
+            r_err = [rot_err_deg(np, poses[i, :3, :3], gts[i][:3, :3]) for i in range(n)]
+            t_err = [float(np.linalg.norm(poses[i, :3, 3] - gts[i][:3, 3])) for i in range(n)]
+            rec.update(frames=n, valid=int(out["valid"].sum()), median_rot_deg=statistics.median(r_err),
+                       median_trans_mm=statistics.median(t_err) * 1e3, max_rot_deg=max(r_err),
+                       max_trans_mm=max(t_err) * 1e3)
+            require(bool(out["valid"].all()), "a frame had no valid hypothesis")
+            require(rec["median_rot_deg"] <= 0.1, f"median rotation error {rec['median_rot_deg']} deg")
+            require(rec["median_trans_mm"] <= 2.0, f"median translation error {rec['median_trans_mm']} mm")
 
-        # Scene coordinates of the same features through K1, the plain chain,
-        # cuBLAS (yardstick) and the exact chain (f64 sums, the same bf16
-        # rounding points). Tensor cores accumulate in f32 with truncation, so
-        # K1 and cuBLAS flip a bf16 rounding in about 2% of the cells where an
-        # IEEE f32 sum flips in under 1%; a flip moves a cell by millimetres.
-        # The checks: K1 equals the exact chain in at least 95% of the cells,
-        # and its coordinates are within 2^-9 (bf16's unit roundoff) of the
-        # exact ones, relative Frobenius. A wrong kernel changes nearly every
-        # cell.
-        scene = load_scene(str(SCENE / FRAMES), external_focal_length=FOCAL)
-        enc = torch_io.load_encoder(ENCODER, DEVICE)
-        head_cfg, head = torch_io.load_head(HEAD, DEVICE)
-        with torch.inference_mode():
-            t0 = synced_clock(torch)
-            images, mask_lr, grid, ppx, ppy = _canvas_prologue(
-                torch.from_numpy(scene.images.canvases).to(DEVICE),
-                torch.from_numpy(scene.images.sizes.astype(np.int64)).to(DEVICE), 8)
-            feats = encoder_apply(enc, images).reshape(-1, 512).to(torch.bfloat16)
-            t1 = synced_clock(torch)
-            w, b, tags = fh.head_params_to_stack(head, head_cfg)
-            hidden = {"k1": fh.fused_head_chain(feats, w, b, tags),
-                      "plain": fh.fused_head_chain_plain(feats, w, b, tags),
-                      "library": library_chain(torch, feats, w, b, tags),
-                      "exact": exact_chain(torch, feats, w, b, tags)}
-            coords = {k: head_epilogue(head, head_cfg, v) for k, v in hidden.items()}
-            t2 = synced_clock(torch)
-            via_k1 = head_apply_flat(head, head_cfg, feats)
-            t3 = synced_clock(torch)
-        # time split of one pass over the 60 frames (pass-1 refit cap)
-        n = len(scene)
-        estimate_poses_batch(via_k1.reshape(n, *mask_lr.shape[1:], 3), mask_lr, grid,
-                             torch.as_tensor(scene.focals_canvas, device=DEVICE), ppx, ppy,
-                             RansacConfig(), max_refine_steps=16,
-                             generator=torch.Generator(device=DEVICE).manual_seed(1305))
-        t4 = synced_clock(torch)
-        rec["split_seconds"] = {"encoder": t1 - t0, "head": t3 - t2, "registrar": t4 - t3}
-        require(bool(torch.equal(via_k1, coords["k1"])), "head_apply_flat does not go through K1")
-        require(bool(torch.isfinite(via_k1).all()), "non-finite scene coordinates")
-        stats = {}
-        for a, bb in (("k1", "plain"), ("k1", "exact"), ("plain", "exact"), ("library", "exact"),
-                      ("k1", "library")):
-            d = torch.linalg.vector_norm(coords[a] - coords[bb], dim=-1).float()
-            q = torch.quantile(d, torch.tensor([0.5, 0.9, 0.99, 0.999], device=d.device)).tolist()
-            stats[f"{a}_vs_{bb}"] = {
-                "p50_mm": q[0] * 1e3, "p90_mm": q[1] * 1e3, "p99_mm": q[2] * 1e3, "p999_mm": q[3] * 1e3,
-                "max_mm": float(d.max()) * 1e3, "cells_differing": float((d > 0).float().mean()),
-                "hidden_elems_differing": float((hidden[a] != hidden[bb]).float().mean()),
-                "rel_err": float((coords[a] - coords[bb]).norm() / coords[bb].norm()),
-            }
-        rec["coords"] = stats
-        rec["coords_abs_m_p50"] = float(torch.quantile(torch.linalg.vector_norm(coords["exact"], dim=-1), 0.5))
-        k1_exact = stats["k1_vs_exact"]
-        require(k1_exact["cells_differing"] <= 0.05,
-                f"K1 coordinates differ from the exact chain in {k1_exact['cells_differing']:.2%} of cells")
-        require(k1_exact["rel_err"] <= 2**-9, f"K1 coordinates: relative error {k1_exact['rel_err']}")
+    if "slice" in phases:
+        with phase("slice", {}) as rec:
+            class Capture(logging.Handler):
+                def __init__(self):
+                    super().__init__()
+                    self.registered = None
 
-    with phase("mapping", {}) as rec:
-        gts = {f: np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in sorted(glob.glob(str(SCENE / FRAMES)))}
+                def emit(self, record):
+                    if record.msg.startswith("Registered %d frames in"):
+                        self.registered = record.args
 
-        def pose_errors(entries):
-            r = [rot_err_deg(np, e.pose_c2w[:3, :3], gts[e.rgb_file][:3, :3]) for e in entries]
-            t = [float(np.linalg.norm(e.pose_c2w[:3, 3] - gts[e.rgb_file][:3, 3])) for e in entries]
-            return r, t
-
-        map_launches = {"fwd": 0, "bwd": 0}
-        rec.update(kind=kind, nvidia_smi=smi)
-        with tempfile.TemporaryDirectory() as tmp:
-            for name, extra in MAPPING_RUNS.items():
-                net = Path(tmp) / f"{name}.pt"
-                argv = [str(SCENE / FRAMES), str(net), "--pose_files", str(SCENE / FRAMES.replace(".png", "_pose.txt")),
-                        "--use_external_focal_length", str(FOCAL), "--encoder_path", str(ENCODER),
-                        "--device", DEVICE, *extra]
+            cap = Capture()
+            logging.getLogger("acezero_tpu_torch.registration.driver").addHandler(cap)
+            with tempfile.TemporaryDirectory() as tmp:
+                net = Path(tmp) / "iteration2.pt"
+                shutil.copy(HEAD, net)
+                argv = [str(SCENE / FRAMES), str(net), "--encoder_path", str(ENCODER),
+                        "--use_external_focal_length", str(FOCAL), "--session", "smoke", "--device", DEVICE]
                 fh.LAUNCHES = fh.LAUNCHES_BWD = 0
                 t0 = time.perf_counter()
-                result = train_ace_cli.main(argv)
+                rc = register_cli.main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                fwd, bwd = fh.LAUNCHES, fh.LAUNCHES_BWD
-                map_launches["fwd"] += fwd
-                map_launches["bwd"] += bwd
-                prelim_path = Path(tmp) / f"poses_{name}_preliminary.txt"
-                prelim = prelim_path.read_text().splitlines()
-                prelim_r, prelim_t = pose_errors(read_pose_file(prelim_path))
-                log = result["log"]
-                steps = result["steps"]
-                rec[name] = {
-                    "cli_seconds": wall, "fill_seconds": result["fill_time"], "train_seconds": result["train_time"],
-                    "steps": steps, "iterations": result["iterations"], "steps_per_s": steps / result["train_time"],
-                    "buffer_rows": result["buffer_rows"], "fused_head_fwd_launches": fwd,
-                    "fused_head_bwd_launches": bwd, "first_log": log[0] if log else None,
-                    "last_log": log[-1] if log else None, "log": log, "focal_refined": result["focal_orig"],
-                    "prelim_median_rot_deg": statistics.median(prelim_r),
-                    "prelim_median_trans_mm": statistics.median(prelim_t) * 1e3,
+                launches = fh.LAUNCHES
+                require(fh.LAUNCHES_BWD == 0, "registration launched the backward kernel")
+                require(rc == 0, f"register_cli returned {rc}")
+                lines = (Path(tmp) / "poses_smoke.txt").read_text().splitlines()
+                entries = read_pose_file(Path(tmp) / "poses_smoke.txt")
+            require(launches > 0, "the main path never launched fused_head_fwd")
+            require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
+                    f"pose file is not {N_FRAMES} lines of 10 tokens")
+            require(all(np.isfinite(e.pose_w2c).all() for e in entries), "non-finite pose")
+            reg_seconds = cap.registered[1] if cap.registered else float("nan")
+            rec.update(cli_seconds=wall, register_seconds=reg_seconds, frames=len(entries),
+                       frames_per_s=len(entries) / reg_seconds, cli_frames_per_s=len(entries) / wall,
+                       fused_head_fwd_launches=launches, kind=kind, nvidia_smi=smi,
+                       inliers_median=statistics.median(e.confidence for e in entries))
+
+            # Scene coordinates of the same features through K1, the plain chain,
+            # cuBLAS (yardstick) and the exact chain (f64 sums, the same bf16
+            # rounding points). Tensor cores accumulate in f32 with truncation, so
+            # K1 and cuBLAS flip a bf16 rounding in about 2% of the cells where an
+            # IEEE f32 sum flips in under 1%; a flip moves a cell by millimetres.
+            # The checks: K1 equals the exact chain in at least 95% of the cells,
+            # and its coordinates are within 2^-9 (bf16's unit roundoff) of the
+            # exact ones, relative Frobenius. A wrong kernel changes nearly every
+            # cell.
+            scene = load_scene(str(SCENE / FRAMES), external_focal_length=FOCAL)
+            enc = torch_io.load_encoder(ENCODER, DEVICE)
+            head_cfg, head = torch_io.load_head(HEAD, DEVICE)
+            with torch.inference_mode():
+                t0 = synced_clock(torch)
+                images, mask_lr, grid, ppx, ppy = _canvas_prologue(
+                    torch.from_numpy(scene.images.canvases).to(DEVICE),
+                    torch.from_numpy(scene.images.sizes.astype(np.int64)).to(DEVICE), 8)
+                feats = encoder_apply(enc, images).reshape(-1, 512).to(torch.bfloat16)
+                t1 = synced_clock(torch)
+                w, b, tags = fh.head_params_to_stack(head, head_cfg)
+                hidden = {"k1": fh.fused_head_chain(feats, w, b, tags),
+                          "plain": fh.fused_head_chain_plain(feats, w, b, tags),
+                          "library": library_chain(torch, feats, w, b, tags),
+                          "exact": exact_chain(torch, feats, w, b, tags)}
+                coords = {k: head_epilogue(head, head_cfg, v) for k, v in hidden.items()}
+                t2 = synced_clock(torch)
+                via_k1 = head_apply_flat(head, head_cfg, feats)
+                t3 = synced_clock(torch)
+            # time split of one pass over the 60 frames (pass-1 refit cap)
+            n = len(scene)
+            estimate_poses_batch(via_k1.reshape(n, *mask_lr.shape[1:], 3), mask_lr, grid,
+                                 torch.as_tensor(scene.focals_canvas, device=DEVICE), ppx, ppy,
+                                 RansacConfig(), max_refine_steps=16,
+                                 generator=torch.Generator(device=DEVICE).manual_seed(1305))
+            t4 = synced_clock(torch)
+            rec["split_seconds"] = {"encoder": t1 - t0, "head": t3 - t2, "registrar": t4 - t3}
+            require(bool(torch.equal(via_k1, coords["k1"])), "head_apply_flat does not go through K1")
+            require(bool(torch.isfinite(via_k1).all()), "non-finite scene coordinates")
+            stats = {}
+            for a, bb in (("k1", "plain"), ("k1", "exact"), ("plain", "exact"), ("library", "exact"),
+                          ("k1", "library")):
+                d = torch.linalg.vector_norm(coords[a] - coords[bb], dim=-1).float()
+                q = torch.quantile(d, torch.tensor([0.5, 0.9, 0.99, 0.999], device=d.device)).tolist()
+                stats[f"{a}_vs_{bb}"] = {
+                    "p50_mm": q[0] * 1e3, "p90_mm": q[1] * 1e3, "p99_mm": q[2] * 1e3, "p999_mm": q[3] * 1e3,
+                    "max_mm": float(d.max()) * 1e3, "cells_differing": float((d > 0).float().mean()),
+                    "hidden_elems_differing": float((hidden[a] != hidden[bb]).float().mean()),
+                    "rel_err": float((coords[a] - coords[bb]).norm() / coords[bb].norm()),
                 }
-                require(bwd == steps, f"{name}: K2 launched {bwd} times for {steps} steps")
-                require(fwd >= steps, f"{name}: K1 launched {fwd} times for {steps} steps")
-                require(len(log) >= 2 and all(np.isfinite(e["loss"]) for e in log), f"{name}: missing or non-finite losses")
-                require(log[-1]["loss"] < log[0]["loss"], f"{name}: loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
-                require(len(prelim) == N_FRAMES and all(len(ln.split()) == 10 for ln in prelim),
-                        f"{name}: preliminary pose file is not {N_FRAMES} lines of 10 tokens")
+            rec["coords"] = stats
+            rec["coords_abs_m_p50"] = float(torch.quantile(torch.linalg.vector_norm(coords["exact"], dim=-1), 0.5))
+            k1_exact = stats["k1_vs_exact"]
+            require(k1_exact["cells_differing"] <= 0.05,
+                    f"K1 coordinates differ from the exact chain in {k1_exact['cells_differing']:.2%} of cells")
+            require(k1_exact["rel_err"] <= 2**-9, f"K1 coordinates: relative error {k1_exact['rel_err']}")
 
-            # relocalize the 60 frames against the map trained on their poses
-            argv = [str(SCENE / FRAMES), str(Path(tmp) / "fixed_poses.pt"), "--encoder_path", str(ENCODER),
-                    "--use_external_focal_length", str(FOCAL), "--session", "reloc", "--device", DEVICE]
-            t0 = time.perf_counter()
-            require(register_cli.main(argv) == 0, "register_cli failed on the trained map")
-            entries = read_pose_file(Path(tmp) / "poses_reloc.txt")
-            rec["reloc_seconds"] = time.perf_counter() - t0
-        r_err, t_err = pose_errors(entries)
-        good = sum(1 for a, t in zip(r_err, t_err) if a <= 5.0 and t <= 0.05)
-        rec.update(reloc_frames=len(entries), reloc_within_5cm_5deg=good,
-                   reloc_median_rot_deg=statistics.median(r_err), reloc_median_trans_mm=statistics.median(t_err) * 1e3,
-                   reloc_inliers_median=statistics.median(e.confidence for e in entries))
-        require(len(entries) == N_FRAMES, f"registered {len(entries)} of {N_FRAMES} frames")
-        require(good >= RELOC_SHARE * N_FRAMES,
-                f"the trained map relocalizes {good} of {N_FRAMES} frames within 5 cm / 5 deg")
+    if "mapping" in phases:
+        with phase("mapping", {}) as rec:
+            gts = {f: np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in sorted(glob.glob(str(SCENE / FRAMES)))}
 
-    with phase("profile", {}) as rec:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+            def pose_errors(entries):
+                r = [rot_err_deg(np, e.pose_c2w[:3, :3], gts[e.rgb_file][:3, :3]) for e in entries]
+                t = [float(np.linalg.norm(e.pose_c2w[:3, 3] - gts[e.rgb_file][:3, 3])) for e in entries]
+                return r, t
 
-        scene = load_scene(str(SCENE / FRAMES), pose_files=str(SCENE / FRAMES.replace(".png", "_pose.txt")),
-                           external_focal_length=FOCAL, image_short_size=PROFILE_SHORT_SIDE)
-        enc = torch_io.load_encoder(ENCODER, DEVICE)
-        warm, n = PROFILE_STEPS
-        for name, refine in (("recipe", True), ("fixed_poses", False)):
-            cfg = TrainConfig(schedule=ScheduleConfig(learning_rate_max=0.003), loss=ReproLossConfig(loss_type="tanh"),
-                              pose_refinement="mlp" if refine else "none", refine_calibration=refine, **PROFILE_TRAIN)
-            trainer = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(**PROFILE_BUFFER))
-            buffer = trainer.build_buffer()
-            state = trainer.build_state()
-            hp = train_hp(cfg)
-            state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), warm, generator=trainer.generator)
-            # host time per step without the profiler (its start-up and
-            # bookkeeping slow the host), device time per step under it
-            t0 = synced_clock(torch)
-            state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), n, generator=trainer.generator)
-            host_ms = (synced_clock(torch) - t0) / n * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            map_launches = {"fwd": 0, "bwd": 0}
+            rec.update(kind=kind, nvidia_smi=smi)
+            with tempfile.TemporaryDirectory() as tmp:
+                for name, extra in MAPPING_RUNS.items():
+                    net = Path(tmp) / f"{name}.pt"
+                    argv = [str(SCENE / FRAMES), str(net), "--pose_files", str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                            "--use_external_focal_length", str(FOCAL), "--encoder_path", str(ENCODER),
+                            "--device", DEVICE, *extra]
+                    fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                    t0 = time.perf_counter()
+                    result = train_ace_cli.main(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    fwd, bwd = fh.LAUNCHES, fh.LAUNCHES_BWD
+                    map_launches["fwd"] += fwd
+                    map_launches["bwd"] += bwd
+                    prelim_path = Path(tmp) / f"poses_{name}_preliminary.txt"
+                    prelim = prelim_path.read_text().splitlines()
+                    prelim_r, prelim_t = pose_errors(read_pose_file(prelim_path))
+                    log = result["log"]
+                    steps = result["steps"]
+                    rec[name] = {
+                        "cli_seconds": wall, "fill_seconds": result["fill_time"], "train_seconds": result["train_time"],
+                        "steps": steps, "iterations": result["iterations"], "steps_per_s": steps / result["train_time"],
+                        "buffer_rows": result["buffer_rows"], "fused_head_fwd_launches": fwd,
+                        "fused_head_bwd_launches": bwd, "first_log": log[0] if log else None,
+                        "last_log": log[-1] if log else None, "log": log, "focal_refined": result["focal_orig"],
+                        "prelim_median_rot_deg": statistics.median(prelim_r),
+                        "prelim_median_trans_mm": statistics.median(prelim_t) * 1e3,
+                    }
+                    require(bwd == steps, f"{name}: K2 launched {bwd} times for {steps} steps")
+                    require(fwd >= steps, f"{name}: K1 launched {fwd} times for {steps} steps")
+                    require(len(log) >= 2 and all(np.isfinite(e["loss"]) for e in log), f"{name}: missing or non-finite losses")
+                    require(log[-1]["loss"] < log[0]["loss"], f"{name}: loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
+                    require(len(prelim) == N_FRAMES and all(len(ln.split()) == 10 for ln in prelim),
+                            f"{name}: preliminary pose file is not {N_FRAMES} lines of 10 tokens")
+
+                # relocalize the 60 frames against the map trained on their poses
+                argv = [str(SCENE / FRAMES), str(Path(tmp) / "fixed_poses.pt"), "--encoder_path", str(ENCODER),
+                        "--use_external_focal_length", str(FOCAL), "--session", "reloc", "--device", DEVICE]
+                t0 = time.perf_counter()
+                require(register_cli.main(argv) == 0, "register_cli failed on the trained map")
+                entries = read_pose_file(Path(tmp) / "poses_reloc.txt")
+                rec["reloc_seconds"] = time.perf_counter() - t0
+            r_err, t_err = pose_errors(entries)
+            good = sum(1 for a, t in zip(r_err, t_err) if a <= 5.0 and t <= 0.05)
+            rec.update(reloc_frames=len(entries), reloc_within_5cm_5deg=good,
+                       reloc_median_rot_deg=statistics.median(r_err), reloc_median_trans_mm=statistics.median(t_err) * 1e3,
+                       reloc_inliers_median=statistics.median(e.confidence for e in entries))
+            require(len(entries) == N_FRAMES, f"registered {len(entries)} of {N_FRAMES} frames")
+            require(good >= RELOC_SHARE * N_FRAMES,
+                    f"the trained map relocalizes {good} of {N_FRAMES} frames within 5 cm / 5 deg")
+
+    if "profile" in phases:
+        with phase("profile", {}) as rec:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            scene = load_scene(str(SCENE / FRAMES), pose_files=str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                               external_focal_length=FOCAL, image_short_size=PROFILE_SHORT_SIDE)
+            enc = torch_io.load_encoder(ENCODER, DEVICE)
+            warm, n = PROFILE_STEPS
+            for name, refine in (("recipe", True), ("fixed_poses", False)):
+                cfg = TrainConfig(schedule=ScheduleConfig(learning_rate_max=0.003), loss=ReproLossConfig(loss_type="tanh"),
+                                  pose_refinement="mlp" if refine else "none", refine_calibration=refine, **PROFILE_TRAIN)
+                trainer = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(**PROFILE_BUFFER))
+                buffer = trainer.build_buffer()
+                state = trainer.build_state()
+                hp = train_hp(cfg)
+                state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), warm, generator=trainer.generator)
+                # host time per step without the profiler (its start-up and
+                # bookkeeping slow the host), device time per step under it
+                t0 = synced_clock(torch)
                 state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), n, generator=trainer.generator)
-                torch.cuda.synchronize()
-            # kernel events only: the CPU ops that launched them carry the same time
-            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
-            top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-            rec[name] = {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
-                         "device_busy_share": device_ms / host_ms,
-                         "kernels_per_step": sum(e.count for e in events) / n,
-                         "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / n for e in top}}
-            del trainer, buffer, state
+                host_ms = (synced_clock(torch) - t0) / n * 1e3
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), n, generator=trainer.generator)
+                    torch.cuda.synchronize()
+                # kernel events only: the CPU ops that launched them carry the same time
+                events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+                top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+                rec[name] = {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+                             "device_busy_share": device_ms / host_ms,
+                             "kernels_per_step": sum(e.count for e in events) / n,
+                             "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / n for e in top}}
+                del trainer, buffer, state
 
-    with phase("report", {}):
-        emit(kernels=[{
-            "name": "fused_head_fwd",
-            "route": "cuda",
-            "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
-            "replaces": "acezero_tpu/ops/fused_head.py:108",
-            "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-            "launches": launches + map_launches["fwd"],
-            "launches_by_path": {"register": launches, "mapping": map_launches["fwd"]},
-            "max_abs_err": k1["registration"]["max_abs_err"],
-            "rel_err": k1["registration"]["rel_err"],
-            "ms": k1["registration"]["kernel_ms"],
-            "kernel_ms": k1["registration"]["kernel_ms"],
-            "plain_ms": k1["registration"]["plain_ms"],
-            "bound_ms": k1["registration"]["bound_ms"],
-            "bound_by": k1["registration"]["bound_by"],
-            "library_ms": k1["registration"]["library_ms"],
-            "shape": {"B": k1["registration"]["B"], "L": k1["registration"]["L"]},
-            "mapping_shape": {k: k1["mapping"][k] for k in ("B", "L", "kernel_ms", "plain_ms", "library_ms",
-                                                             "bound_ms", "bound_by", "rel_err")},
-        }, {
-            "name": "fused_head_bwd",
-            "route": "cuda",
-            "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
-            "replaces": "acezero_tpu/ops/fused_head.py:112",
-            "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
-            "launches": map_launches["bwd"],
-            "launches_by_path": {"register": 0, "mapping": map_launches["bwd"]},
-            "max_abs_err": k2["max_abs_err"],
-            "rel_err": k2["rel_err"],
-            "ms": k2["kernel_ms"],
-            "kernel_ms": k2["kernel_ms"],
-            "plain_ms": k2["plain_ms"],
-            "bound_ms": k2["bound_ms"],
-            "bound_by": k2["bound_by"],
-            "library_ms": k2["library_ms"],
-            "shape": {"B": k2["B"], "L": k2["L"]},
-        }])
+    if "report" in phases:
+        with phase("report", {}):
+            def pick(entry, *keys):
+                return {k: entry.get(k) for k in keys}
+
+            fields = ("max_abs_err", "rel_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            k1_reg, k1_map, k2_map = k1.get("registration", {}), k1.get("mapping", {}), k2.get("mapping", {})
+            fwd = map_launches["fwd"] if map_launches else 0
+            bwd = map_launches["bwd"] if map_launches else 0
+            emit(kernels=[{
+                "name": "fused_head_fwd",
+                "route": "cuda",
+                "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
+                "replaces": "acezero_tpu/ops/fused_head.py:108",
+                "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
+                "launches": (launches or 0) + fwd,
+                "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None},
+                **pick(k1_reg, *fields),
+                "ms": k1_reg.get("kernel_ms"),
+                "shape": pick(k1_reg, "B", "L"),
+                "kernel_ms_stream": k1_reg.get("kernel_ms_stream"),
+                "mapping_shape": pick(k1_map, "B", "L", "kernel_ms", "kernel_ms_stream", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "rel_err"),
+            }, {
+                "name": "fused_head_bwd",
+                "route": "cuda",
+                "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
+                "replaces": "acezero_tpu/ops/fused_head.py:112",
+                "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
+                "launches": bwd,
+                "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None},
+                **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),
+                "ms": k2_map.get("kernel_ms"),
+                "shape": pick(k2_map, "B", "L"),
+                "other_shapes": {name: pick(e, "B", "L", "kernel_ms", "kernel_ms_stream", "tflops", "sm_fill")
+                                 for name, e in k2.items() if name != "mapping"},
+            }])
+
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

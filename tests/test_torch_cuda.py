@@ -47,7 +47,12 @@ def test_fused_head_fwd_matches_plain(cuda, B, tags):
 @pytest.mark.parametrize("B,tags", [(5120, (0, 0, 1, 0, 0, 1, 0, 0)),
                                     (5120 + 37, (0, 0, 1, 0, 0, 1, 0, 0)),
                                     (5120, (0, 0, 1, 0, 0)),
-                                    (5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0))])
+                                    (5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (1, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (64, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (65, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (5120, (0,)),
+                                    (5120 + 37, (1,))])
 def test_fused_head_bwd_matches_plain(cuda, B, tags):
     """K2 against its plain version: relative Frobenius 2e-2 (chip_smoke.py
     K2_TOL: tensor-core and IEEE sums flip single bf16 roundings and, rarely,
