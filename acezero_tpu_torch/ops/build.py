@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher and becomes its
 own shared library, `_build/<name>-<hash>.so`, where the hash covers the
-source and the compiler flags: a library is rebuilt only when one of them
-changes. Builds happen on first use, never at import, and all requested
-sources compile in parallel. There is no fallback: a missing `nvcc` or a
-failed build raises with the compiler's output.
+source, every shared header `csrc/*.cuh` and the compiler flags: a library
+is rebuilt only when one of them changes. Builds happen on first use, never
+at import, and all requested sources compile in parallel. There is no
+fallback: a missing `nvcc` or a failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers a source may include
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

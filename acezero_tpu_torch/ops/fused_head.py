@@ -24,7 +24,7 @@ from acezero_tpu_torch.ops import build
 KERNEL = "fused_head_fwd"
 KERNEL_BWD = "fused_head_bwd"
 CHANNELS = 512
-TILE_ROWS = 64  # rows of x per block of the backward kernel
+TILE_ROWS = 64  # rows of x per tile of either kernel
 
 # Kernel launches made by `fused_head_chain` / `fused_head_chain_backward`
 # in this process.
@@ -222,18 +222,27 @@ def fused_head_chain_backward(x, w_stack, b_stack, g, res_after):
     return dx, gpre, acts_in
 
 
-def backward_kernel_info() -> dict:
-    """The backward kernel's resources as the card reports them (builds the
-    kernel on first use): dynamic shared bytes, threads, rows per tile,
-    registers and local (stack and spill) bytes per thread."""
-    fn = build.load(KERNEL_BWD).fused_head_bwd_info
+def _kernel_info(name: str) -> dict:
+    fn = getattr(build.load(name), f"{name}_info")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     info = (ctypes.c_int * 5)()
     rc = fn(info)
     if rc != 0:
-        raise RuntimeError(f"{KERNEL_BWD}_info failed: CUDA error {rc}")
+        raise RuntimeError(f"{name}_info failed: CUDA error {rc}")
     return dict(zip(("smem_bytes", "threads", "tile_rows", "registers", "local_bytes"), info))
+
+
+def forward_kernel_info() -> dict:
+    """The forward kernel's resources as the card reports them (builds the
+    kernel on first use): dynamic shared bytes, threads, rows per tile,
+    registers and local (stack and spill) bytes per thread."""
+    return _kernel_info(KERNEL)
+
+
+def backward_kernel_info() -> dict:
+    """The backward kernel's resources, as `forward_kernel_info`."""
+    return _kernel_info(KERNEL_BWD)
 
 
 def chain_weight_grads(gpre, acts_in):

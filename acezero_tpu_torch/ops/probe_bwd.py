@@ -3,7 +3,7 @@
     python3 -m acezero_tpu_torch.ops.probe_bwd [--rows 5120 64] [--out FILE]
 
 Builds variants of `csrc/fused_head_bwd.cu` (nvcc, in parallel, into a
-temporary directory), runs each in its own process at L = 8 (one extra head
+temporary directory, `-I csrc/` for the shared `hopper.cuh`), runs each in its own process at L = 8 (one extra head
 block) for each B in `--rows`, and prints one JSON line per variant and B:
 
   kernel     the kernel as the port builds it, held against the plain version
@@ -20,7 +20,9 @@ Times are CUDA events around 20 back-to-back launches (`ms`, per launch) and
 around single launches (`ms_call`, median of 10, host launch cost included).
 The timing-only variants compute garbage. Each variant is a text patch of the
 source; a patch that no longer applies raises. The card's name and power
-limit go on the first line. Nothing here is used by the port.
+limit go on the first line. Nothing here is used by the port. The
+machinery (patching, building, timing, the command line) serves the forward
+kernel's probe too (`probe_fwd.py`).
 """
 
 from __future__ import annotations
@@ -68,8 +70,8 @@ _PROFILE = [
      "    if ((tid & 127) == 0) {\n        unsigned long long* o = probe_clocks + (blockIdx.x * 2 + wg) * 8;\n"
      "        o[0] = clock64() - t_all; o[1] = t_fg; o[2] = t_fe; o[3] = t_bg; o[4] = t_be; o[5] = tw; o[6] = tb;\n"
      "    }\n}\n"),
-    ("namespace {\n\nconstexpr int C = 512;",
-     "__device__ unsigned long long probe_clocks[1024 * 16];\nnamespace {\n\nconstexpr int C = 512;"),
+    ("namespace {\n\nconstexpr int THREADS = 256;",
+     "__device__ unsigned long long probe_clocks[1024 * 16];\nnamespace {\n\nconstexpr int THREADS = 256;"),
     ('}  // extern "C"\n',
      "int probe_clocks_read(unsigned long long* out, int n) {\n"
      "    return (int)cudaMemcpyFromSymbol(out, probe_clocks, size_t(n) * 8);\n}\n"
@@ -85,25 +87,32 @@ TIMING_ONLY = {"ring_only", "no_ring"}
 PROFILE_SPANS = ("all", "fwd_gemm", "fwd_epilogue", "bwd_gemm", "bwd_epilogue", "ring_wait", "mma_wait_and_barrier")
 
 
-def variant_source(name: str, source: str | None = None) -> str:
-    """The source of variant `name`: every patch must apply."""
-    text = SOURCE.read_text() if source is None else source
-    for old, new in VARIANTS[name]:
+def apply_patches(text: str, patches, label: str) -> str:
+    """`text` with every (old, new) patch applied; a patch whose old text is
+    missing raises rather than leave a variant half-patched."""
+    for old, new in patches:
         if old not in text:
-            raise ValueError(f"probe variant {name!r}: patch no longer applies: {old[:60]!r}")
+            raise ValueError(f"probe variant {label!r}: patch no longer applies: {old[:60]!r}")
         text = text.replace(old, new)
     return text
 
 
-def _build_all(tmp: Path) -> dict[str, Path]:
+def variant_source(name: str, source: str | None = None) -> str:
+    """The source of variant `name`: every patch must apply."""
+    return apply_patches(SOURCE.read_text() if source is None else source, VARIANTS[name], name)
+
+
+def build_variants(tmp: Path, sources: dict[str, str]) -> dict[str, Path]:
+    """Compile each variant source into `tmp` (nvcc, all at once; `-I` the
+    kernels' directory for their shared headers)."""
     from acezero_tpu_torch.ops import build
 
     procs = {}
-    for name in VARIANTS:
+    for name, text in sources.items():
         src = tmp / f"{name}.cu"
-        src.write_text(variant_source(name))
+        src.write_text(text)
         lib = tmp / f"{name}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, p) in procs.items():
@@ -112,6 +121,39 @@ def _build_all(tmp: Path) -> dict[str, Path]:
             raise RuntimeError(f"probe variant {name}: nvcc exit {p.returncode}\n{log}")
         libs[name] = lib
     return libs
+
+
+def time_launches(run, torch) -> dict:
+    """CUDA-event times of `run`: per launch over 20 back to back (`ms`) and
+    the median of 10 single launches (`ms_call`), after 3 warm-ups."""
+    for _ in range(3):
+        run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        run()
+    end.record()
+    end.synchronize()
+    calls = []
+    for _ in range(10):
+        s0, e0 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s0.record()
+        run()
+        e0.record()
+        e0.synchronize()
+        calls.append(s0.elapsed_time(e0))
+    return {"ms": start.elapsed_time(end) / 20, "ms_call": sorted(calls)[len(calls) // 2]}
+
+
+def read_clocks(lib, n: int):
+    """The profile variant's first n clock words, as a numpy array."""
+    import numpy as np
+
+    buf = (ctypes.c_ulonglong * n)()
+    rc = lib.probe_clocks_read(buf, n)
+    if rc != 0:
+        raise RuntimeError(f"probe_clocks_read: CUDA error {rc}")
+    return np.array(list(buf), dtype=np.float64)
 
 
 def _run_variant(name: str, lib_path: str, rows: list[int]) -> None:
@@ -142,46 +184,28 @@ def _run_variant(name: str, lib_path: str, rows: list[int]) -> None:
             ref = fh.fused_head_chain_backward_plain(x, w, b, g, TAGS)
             line["rel_err"] = max(float((o.double() - r.double()).norm() / r.double().norm())
                                   for o, r in zip(out, ref))
-        for _ in range(3):
-            run()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            run()
-        end.record()
-        end.synchronize()
-        line["ms"] = start.elapsed_time(end) / 20
-        calls = []
-        for _ in range(10):
-            s0, e0 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s0.record()
-            run()
-            e0.record()
-            e0.synchronize()
-            calls.append(s0.elapsed_time(e0))
-        line["ms_call"] = sorted(calls)[len(calls) // 2]
+        line.update(time_launches(run, torch))
         if name == "profile":
             run()
             torch.cuda.synchronize()
             tiles = -(-B // fh.TILE_ROWS)
-            buf = (ctypes.c_ulonglong * (tiles * 16))()
-            rc = lib.probe_clocks_read(buf, tiles * 16)
-            if rc != 0:
-                raise RuntimeError(f"probe_clocks_read: CUDA error {rc}")
-            spans = np.array(list(buf), dtype=np.float64).reshape(tiles * 2, 8)
+            spans = read_clocks(lib, tiles * 16).reshape(tiles * 2, 8)
             line["clocks_per_tile"] = {k: float(spans[:, i].mean()) for i, k in enumerate(PROFILE_SPANS)}
         print(json.dumps(line), flush=True)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, nargs="+", default=[5120, 64], help="batch rows B to time")
+def probe_main(module: str, description: str, sources, run_variant, default_rows, argv=None) -> int:
+    """The probe's command line: build every variant of `sources()` and run
+    each in its own process (`python -m module --variant NAME --lib PATH`),
+    which calls `run_variant(name, lib_path, rows)` and prints JSON lines."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--rows", type=int, nargs="+", default=default_rows, help="batch rows B to time")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     ap.add_argument("--variant", help=argparse.SUPPRESS)
     ap.add_argument("--lib", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.variant:
-        _run_variant(args.variant, args.lib, args.rows)
+        run_variant(args.variant, args.lib, args.rows)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -189,8 +213,8 @@ def main(argv=None) -> int:
     print(lines[0], flush=True)
     failed = False
     with tempfile.TemporaryDirectory() as tmp:
-        for name, lib in _build_all(Path(tmp)).items():
-            r = subprocess.run([sys.executable, "-m", "acezero_tpu_torch.ops.probe_bwd", "--variant", name,
+        for name, lib in build_variants(Path(tmp), sources()).items():
+            r = subprocess.run([sys.executable, "-m", module, "--variant", name,
                                 "--lib", str(lib), "--rows", *map(str, args.rows)],
                                capture_output=True, text=True, timeout=300)
             out = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
@@ -204,6 +228,11 @@ def main(argv=None) -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")
     return 1 if failed else 0
+
+
+def main(argv=None) -> int:
+    return probe_main("acezero_tpu_torch.ops.probe_bwd", __doc__.split("\n\n")[0],
+                      lambda: {name: variant_source(name) for name in VARIANTS}, _run_variant, [5120, 64], argv)
 
 
 if __name__ == "__main__":

@@ -13,9 +13,10 @@ Phases:
   0 device    the card, its power limit, the torch/CUDA versions
   1 build     nvcc builds every kernel of the paths from csrc/, in parallel
   2 kernels   each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes, with times (CUDA events, median): K1
-              (head chain forward) and K2 (its backward), and the autograd
-              Function's weight gradients against autograd of the plain chain
+              the main paths' shapes and the tile edges, with times (CUDA
+              events, median) and resources: K1 (head chain forward) and K2
+              (its backward), and the autograd Function's weight gradients
+              against autograd of the plain chain
   3 registrar ground-truth scene coordinates of the 60 chesslike_a frames
               (shipped depth + pose) -> the port's estimate_poses_batch
               recovers the shipped poses
@@ -69,13 +70,23 @@ PEAK_BYTES = 3.35e12
 
 K1_TOL = 1e-2  # relative Frobenius error of the bf16 chain output
 ONE_BLOCK_TAGS = (0, 0, 1, 0, 0, 1, 0, 0)
+H100_SMS = 132
 # (case, rows B, residual tags): the registration shape (60x80 cells x 64
-# frames, num_head_blocks=1), a ragged B, and num_head_blocks 0 and 2
+# frames, num_head_blocks=1), a ragged B, num_head_blocks 0 and 2, the
+# mapping shape; the tile edges (one row, one full tile, one row past it);
+# one layer with and without the residual add; a full card (one 64-row tile
+# per SM of an H100); and a persistent grid whose tile count is no multiple
+# of the SMs (2 x 132 + 1 full tiles and a ragged one)
 K1_CASES = [("registration", 307_200, ONE_BLOCK_TAGS), ("ragged", 3 * 4800 + 37, ONE_BLOCK_TAGS),
             ("blocks0", 4800 * 4, (0, 0, 1, 0, 0)),
             ("blocks2", 4800 * 4, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
-            ("mapping", 5120, ONE_BLOCK_TAGS)]
-K1_TIMED = ("registration", "mapping")  # the main paths' shapes, timed
+            ("mapping", 5120, ONE_BLOCK_TAGS),
+            ("B1", 1, ONE_BLOCK_TAGS), ("B64", 64, ONE_BLOCK_TAGS), ("B65", 65, ONE_BLOCK_TAGS),
+            ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", H100_SMS * 64, ONE_BLOCK_TAGS),
+            ("persistent", (2 * H100_SMS + 1) * 64 + 37, ONE_BLOCK_TAGS)]
+# the main paths' shapes, and one tile and a full card to tell the fill from
+# the per-tile pipeline
+K1_TIMED = ("registration", "mapping", "B64", "fill132")
 # K2 (the chain's backward): dx, gpre and acts_in against the plain version,
 # relative Frobenius. Both round to bf16 at the same points, but a tensor-core
 # sum and an IEEE f32 sum flip single bf16 roundings and, rarely, ReLU masks,
@@ -96,7 +107,7 @@ K2_GRAD_TOL = 2e-2  # dW, db of the autograd Function against autograd of the pl
 K2_CASES = [("mapping", 5120, ONE_BLOCK_TAGS), ("ragged", 5120 + 37, ONE_BLOCK_TAGS),
             ("blocks0", 5120, (0, 0, 1, 0, 0)), ("blocks2", 5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
             ("B1", 1, ONE_BLOCK_TAGS), ("B64", 64, ONE_BLOCK_TAGS), ("B65", 65, ONE_BLOCK_TAGS),
-            ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", 132 * 64, ONE_BLOCK_TAGS)]
+            ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", H100_SMS * 64, ONE_BLOCK_TAGS)]
 K2_TIMED = ("mapping", "B64", "fill132")  # kernel_ms of each; plain and library at the mapping shape
 # phase mapping, two runs of the train CLI: the pipeline's mapping recipe
 # (AceZeroPipeline._base_train_cfg: 1cyclepoly at 0.003, tanh, MLP pose and
@@ -370,6 +381,10 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         with phase("kernels", {}) as rec:
             results = []
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            info = fh.forward_kernel_info()
+            rec["k1_resources"] = {**info, "sms": sms}
+            require(info["local_bytes"] == 0, f"K1 uses {info['local_bytes']} bytes of stack or spill a thread")
             for i, (name, B, tags) in enumerate(K1_CASES):
                 x, w, b = k1_inputs(torch, B, tags, seed=i)
                 out = fh.fused_head_chain(x, w, b, tags)
@@ -383,18 +398,25 @@ def main(argv=None) -> int:
                 results.append(entry)
                 require(entry["finite"] and rel <= K1_TOL, f"K1 {name}: rel err {rel} > {K1_TOL}")
                 if name in K1_TIMED:
+                    entry["rel_err_vs_library"] = rel_err(out, library_chain(torch, x, w, b, tags))
                     entry["kernel_ms"] = time_ms(lambda: fh.fused_head_chain(x, w, b, tags), torch)
                     entry["kernel_ms_stream"] = stream_ms(lambda: fh.fused_head_chain(x, w, b, tags), torch)
+                    # the host's launch cost where the device waits for it
+                    entry["launch_overhead_ms"] = entry["kernel_ms"] - entry["kernel_ms_stream"]
                     entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_plain(x, w, b, tags), torch)
                     entry["library_ms"] = time_ms(lambda: library_chain(torch, x, w, b, tags), torch)
                     entry["bound_ms"], entry["bound_by"] = k1_bound(B, len(tags))
+                    tiles = -(-B // info["tile_rows"])
+                    flops = 2.0 * B * 512**2 * len(tags)
+                    entry.update(tflops=flops / (entry["kernel_ms"] * 1e-3) / 1e12,
+                                 tflops_stream=flops / (entry["kernel_ms_stream"] * 1e-3) / 1e12,
+                                 tiles=tiles, sm_fill=tiles / sms)
                     k1[name] = entry
                 del x, w, b, out, ref, diff
             rec["cases"] = results
 
             results = []
             info = fh.backward_kernel_info()
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
             rec["k2_resources"] = {**info, "sms": sms}
             for i, (name, B, tags) in enumerate(K2_CASES):
                 x, w, b, g = k2_inputs(torch, B, tags, seed=10 + i)
@@ -688,9 +710,13 @@ def main(argv=None) -> int:
                 **pick(k1_reg, *fields),
                 "ms": k1_reg.get("kernel_ms"),
                 "shape": pick(k1_reg, "B", "L"),
-                "kernel_ms_stream": k1_reg.get("kernel_ms_stream"),
-                "mapping_shape": pick(k1_map, "B", "L", "kernel_ms", "kernel_ms_stream", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "rel_err"),
+                **pick(k1_reg, "kernel_ms_stream", "launch_overhead_ms", "rel_err_vs_library", "tflops",
+                       "tflops_stream", "sm_fill"),
+                "mapping_shape": pick(k1_map, "B", "L", "kernel_ms", "kernel_ms_stream", "launch_overhead_ms",
+                                      "plain_ms", "library_ms", "bound_ms", "bound_by", "rel_err",
+                                      "rel_err_vs_library"),
+                "other_shapes": {name: pick(e, "B", "L", "kernel_ms", "kernel_ms_stream", "tflops", "sm_fill")
+                                 for name, e in k1.items() if name not in ("registration", "mapping")},
             }, {
                 "name": "fused_head_bwd",
                 "route": "cuda",

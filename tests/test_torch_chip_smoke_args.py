@@ -45,3 +45,19 @@ def test_k2_cases_cover_the_tile_edges():
     assert any(len(tags) == 1 for _, tags in cases.values())
     assert set(chip_smoke.K2_TIMED) <= set(cases)
     assert chip_smoke.K2_TOL == 2e-2 and chip_smoke.K2_GRAD_TOL == 2e-2
+
+
+def test_k1_cases_cover_the_tile_edges():
+    cases = {name: (B, tags) for name, B, tags in chip_smoke.K1_CASES}
+    # the main paths' shapes and the cases the port had before the Hopper redesign
+    assert {"registration", "ragged", "blocks0", "blocks2", "mapping"} <= set(cases)
+    assert cases["registration"][0] == 307_200 and cases["mapping"][0] == 5120
+    # the tile edges, one layer with and without the residual add, a full H100
+    assert {B for B, _ in cases.values()} >= {1, 64, 65, 132 * 64}
+    assert {tags for _, tags in cases.values()} >= {(0,), (1,)}
+    # a persistent grid whose tile count is no multiple of the SMs, with a ragged tile
+    tiles = {-(-B // 64) for B, _ in cases.values()}
+    assert any(t > 2 * chip_smoke.H100_SMS and t % chip_smoke.H100_SMS for t in tiles)
+    assert any(B > 2 * chip_smoke.H100_SMS * 64 and B % 64 for B, _ in cases.values())
+    assert set(chip_smoke.K1_TIMED) == {"registration", "mapping", "B64", "fill132"}
+    assert chip_smoke.K1_TOL == 1e-2

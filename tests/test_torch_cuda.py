@@ -27,8 +27,20 @@ def cuda():
 
 @pytest.mark.parametrize("B,tags", [(307_200, (0, 0, 1, 0, 0, 1, 0, 0)),
                                     (3 * 4800 + 37, (0, 0, 1, 0, 0)),
-                                    (4800, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0))])
+                                    (4800, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (5120, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (1, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (64, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (65, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    (5120, (0,)),
+                                    (5120 + 37, (1,)),
+                                    (132 * 64, (0, 0, 1, 0, 0, 1, 0, 0)),
+                                    ((2 * 132 + 1) * 64 + 37, (0, 0, 1, 0, 0, 1, 0, 0))])
 def test_fused_head_fwd_matches_plain(cuda, B, tags):
+    """K1 against its plain version at relative Frobenius 1e-2: the main
+    paths' shapes, the tile edges, one layer with and without the residual
+    add, a full H100 (one tile per SM) and a persistent grid whose tile count
+    is no multiple of the SMs."""
     rng = np.random.default_rng(B)
     L = len(tags)
     x = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32) * 0.5).to(cuda, torch.bfloat16)
