@@ -185,10 +185,22 @@ class DecodedImages:
     sizes: np.ndarray
     orig_sizes: np.ndarray
     scale_factors: np.ndarray
+    # a subset made without copying its canvases (SceneData.subset with
+    # copy_canvases=False): `canvases` is an all-zero stub of no memory and
+    # the content is root[root_indices]; read it through `content`
+    root: np.ndarray | None = None
+    root_indices: np.ndarray | None = None
 
     @property
     def canvas_hw(self) -> tuple[int, int]:
         return self.canvases.shape[1], self.canvases.shape[2]
+
+    def content(self, idx=None) -> np.ndarray:
+        """The canvases, or those of frames `idx`, read through the root
+        canvases when this is a stub."""
+        if self.root is None:
+            return self.canvases if idx is None else self.canvases[idx]
+        return self.root[self.root_indices if idx is None else self.root_indices[idx]]
 
 
 def decode_to_canvas(

@@ -63,17 +63,34 @@ class SceneData:
             return np.zeros(3, np.float32)
         return self.poses_c2w[valid, :3, 3].mean(axis=0).astype(np.float32)
 
-    def subset(self, indices) -> "SceneData":
-        """The scene restricted to `indices` (canvases copied)."""
+    def subset(self, indices, copy_canvases: bool = True) -> "SceneData":
+        """The scene restricted to `indices`.
+
+        copy_canvases=False skips the (k, H, W) host gather of the canvases:
+        the subset's `images.canvases` is an all-zero stub and its content is
+        read through `images.content()` from the root canvases, which the
+        subset shares. The trainer and the registration driver read it so.
+        """
         indices = np.asarray(indices)
         images = self.images
+        if copy_canvases:
+            canvases, root, root_indices = images.content(indices), None, None
+        else:
+            hc, wc = images.canvas_hw
+            canvases = np.broadcast_to(np.zeros((1, hc, wc), np.uint8), (len(indices), hc, wc))
+            if images.root is None:
+                root, root_indices = images.canvases, indices
+            else:
+                root, root_indices = images.root, images.root_indices[indices]
         return SceneData(
             rgb_files=[self.rgb_files[i] for i in indices],
             images=DecodedImages(
-                canvases=images.canvases[indices],
+                canvases=canvases,
                 sizes=images.sizes[indices],
                 orig_sizes=images.orig_sizes[indices],
                 scale_factors=images.scale_factors[indices],
+                root=root,
+                root_indices=root_indices,
             ),
             poses_c2w=self.poses_c2w[indices],
             pose_valid=self.pose_valid[indices],

@@ -5,10 +5,11 @@ from acezero_tpu_torch.io.pose_files import (
     load_focal_length,
     load_pose_matrix,
     read_pose_file,
+    registration_rates,
     write_pose_file,
 )
 
 __all__ = [
     "PoseFileEntry", "format_pose_line", "get_files_from_glob", "load_focal_length",
-    "load_pose_matrix", "read_pose_file", "write_pose_file",
+    "load_pose_matrix", "read_pose_file", "registration_rates", "write_pose_file",
 ]

@@ -16,7 +16,7 @@ import glob as _glob
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -151,3 +151,12 @@ def get_files_from_glob(pattern: str) -> list[str]:
 
 def is_pose_valid(pose: np.ndarray) -> bool:
     return bool(np.isfinite(pose).all())
+
+
+def registration_rates(confidences: Sequence[float] | np.ndarray, thresholds: Sequence[float]) -> list[float]:
+    """Fraction of entries with confidence strictly above each threshold
+    (reference ace_zero_util.py:160-185); NaN for no entries."""
+    conf = np.asarray(confidences, dtype=np.float64)
+    if conf.size == 0:
+        return [math.nan for _ in thresholds]
+    return [float((conf > t).sum() / conf.size) for t in thresholds]

@@ -12,6 +12,11 @@ frames cut off while still growing re-run with the full budget and the
 same hypothesis draws. The registrar is deterministic, so the result equals
 a single full-budget pass. Frames where no minimal set validated get one
 more pass with four times the tries.
+
+`register_frames_multi` scores several heads (the seed stage's candidate
+maps) with one encoder pass per chunk and one registrar solve per head, at
+the full refit budget, without the tiers and the retry, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -73,17 +78,93 @@ def coords_chunk(encoder_params, head_params, head_cfg: HeadConfig, images_u8, s
     return head_apply_image(head_params, head_cfg, feats), mask_lr
 
 
+@torch.inference_mode()
+def coords_chunk_multi(encoder_params, head_params_list, head_cfg: HeadConfig, images_u8, sizes,
+                       subsample: int = 8):
+    """Scene coordinates (S, B, h, w, 3) of one chunk under S heads sharing
+    one encoder pass, and the cell mask (B, h, w)."""
+    images, mask_lr, _, _, _ = _canvas_prologue(images_u8, sizes, subsample)
+    feats = encoder_apply(encoder_params, images)
+    return torch.stack([head_apply_image(hp, head_cfg, feats) for hp in head_params_list]), mask_lr
+
+
+def _frame_order(n: int, cfg: RegistrationConfig) -> np.ndarray:
+    order = np.random.default_rng(cfg.base_seed).permutation(n)
+    return order[: cfg.max_estimates] if cfg.max_estimates > 0 else order
+
+
+def _chunk_images(scene: SceneData, idx, device):
+    images = torch.from_numpy(np.ascontiguousarray(scene.images.content(idx))).to(device)
+    sizes = torch.from_numpy(scene.images.sizes[idx].astype(np.int64)).to(device)
+    return images, sizes
+
+
+def _entry(rgb_file: str, pose_c2w: np.ndarray, focal_orig: float, conf) -> PoseFileEntry:
+    return PoseFileEntry(rgb_file=rgb_file, pose_w2c=np.linalg.inv(pose_c2w.astype(np.float64)),
+                         focal_length=float(focal_orig), confidence=float(conf))
+
+
+def register_frames_multi(
+    encoder_params,
+    head_params_list: list,
+    head_cfg: HeadConfig,
+    scene: SceneData,
+    cfg: RegistrationConfig,
+    device=None,
+    hyp_indices: torch.Tensor | None = None,
+) -> list[list[PoseFileEntry]]:
+    """Register the scene's frames against several heads; one entry list per
+    head, in the same frame order.
+
+    Each chunk runs the encoder once and every head's chain (through K1 on
+    the card), then one registrar solve per head at the full refit budget.
+    hyp_indices (S, frames, H, T, 4), indexed by head and scene frame,
+    replaces the generator's draws.
+    """
+    device = resolve_device(device)
+    S = len(head_params_list)
+    order = _frame_order(len(scene), cfg)
+    generator = torch.Generator(device=device).manual_seed(cfg.base_seed + 0x9E37)
+    H, W = scene.images.canvas_hw
+    grid = get_pixel_grid(H // 8, W // 8, 8, device=device)
+    results: list[list[PoseFileEntry]] = [[] for _ in range(S)]
+    t0 = time.time()
+    for c0 in range(0, len(order), cfg.frame_chunk):
+        idx = order[c0 : c0 + cfg.frame_chunk]
+        coords, mask_lr = coords_chunk_multi(encoder_params, head_params_list, head_cfg,
+                                             *_chunk_images(scene, idx, device))
+        focals = torch.as_tensor(scene.focals_canvas[idx], dtype=torch.float32, device=device)
+        ppx = torch.full((len(idx),), W / 2.0, device=device)
+        ppy = torch.full((len(idx),), H / 2.0, device=device)
+        for s in range(S):
+            if hyp_indices is None:
+                draws = draw_hypothesis_indices(mask_lr.reshape(len(idx), -1), cfg.ransac.hypotheses,
+                                                cfg.ransac.max_tries, generator)
+            else:
+                draws = hyp_indices[s][torch.as_tensor(idx)].to(device)
+            out = estimate_poses_batch(coords[s], mask_lr, grid, focals, ppx, ppy, cfg.ransac,
+                                       cfg.ransac.refinement_steps, hyp_indices=draws)
+            poses, confs = out["pose_c2w"].cpu().numpy(), out["inlier_count"].cpu().numpy()
+            for j, i in enumerate(idx):
+                results[s].append(_entry(scene.rgb_files[i], poses[j], scene.focals_orig[i], confs[j]))
+    _logger.info("Registered %d frames x %d maps in %.1fs", len(order), S, time.time() - t0)
+    return results
+
+
 def register_frames(
     encoder_params,
     head_params,
     head_cfg: HeadConfig,
     scene: SceneData,
     cfg: RegistrationConfig,
+    focal_override_orig: float | None = None,
     device=None,
     hyp_indices: torch.Tensor | None = None,
 ) -> list[PoseFileEntry]:
     """Register every frame of the scene; returns pose-file entries.
 
+    focal_override_orig: an original-pixel focal length that replaces the
+    scene's per-frame focals (the pipeline passes its refined estimate).
     Parameters must already be on `device` (default cuda). hyp_indices
     (frames, H, T, 4), indexed by scene frame, replaces the generator's
     draws of pass 1 (and so of the tier-2 rerun); the sampling-failure retry
@@ -91,9 +172,12 @@ def register_frames(
     """
     device = resolve_device(device)
     n = len(scene)
-    order = np.random.default_rng(cfg.base_seed).permutation(n)
-    if cfg.max_estimates > 0:
-        order = order[: cfg.max_estimates]
+    order = _frame_order(n, cfg)
+    if focal_override_orig is not None:
+        focals_canvas = focal_override_orig * scene.images.scale_factors
+        focals_orig = np.full(n, focal_override_orig, np.float32)
+    else:
+        focals_canvas, focals_orig = scene.focals_canvas, scene.focals_orig
     generator = torch.Generator(device=device).manual_seed(cfg.base_seed + 0x9E37)
 
     full_steps = cfg.ransac.refinement_steps
@@ -104,15 +188,13 @@ def register_frames(
     chunk = cfg.frame_chunk
 
     def run(idx, ransac_cfg, max_steps, draws):
-        images = torch.from_numpy(np.ascontiguousarray(scene.images.canvases[idx])).to(device)
-        sizes = torch.from_numpy(scene.images.sizes[idx].astype(np.int64)).to(device)
-        coords, mask_lr = coords_chunk(encoder_params, head_params, head_cfg, images, sizes)
+        coords, mask_lr = coords_chunk(encoder_params, head_params, head_cfg, *_chunk_images(scene, idx, device))
         if draws is None:
             draws = draw_hypothesis_indices(mask_lr.reshape(len(idx), -1), ransac_cfg.hypotheses,
                                             ransac_cfg.max_tries, generator)
         out = estimate_poses_batch(
             coords, mask_lr, grid,
-            torch.as_tensor(scene.focals_canvas[idx], dtype=torch.float32, device=device),
+            torch.as_tensor(focals_canvas[idx], dtype=torch.float32, device=device),
             torch.full((len(idx),), W / 2.0, device=device),
             torch.full((len(idx),), H / 2.0, device=device),
             ransac_cfg, max_steps, hyp_indices=draws,
@@ -120,12 +202,7 @@ def register_frames(
         return {k: v.cpu().numpy() for k, v in out.items()}, draws
 
     def entry(i, pose_c2w, conf):
-        return PoseFileEntry(
-            rgb_file=scene.rgb_files[i],
-            pose_w2c=np.linalg.inv(pose_c2w.astype(np.float64)),
-            focal_length=float(scene.focals_orig[i]),
-            confidence=float(conf),
-        )
+        return _entry(scene.rgb_files[i], pose_c2w, focals_orig[i], conf)
 
     entries: list[PoseFileEntry] = []
     entry_slot: dict[int, int] = {}

@@ -277,7 +277,12 @@ class MappingTrainer:
     """
 
     def __init__(self, scene: SceneData, encoder_params: dict, head_cfg: HeadConfig, cfg: TrainConfig,
-                 buffer_cfg: BufferConfig, head_params: dict | None = None, base_seed: int = 2089):
+                 buffer_cfg: BufferConfig, head_params: dict | None = None, base_seed: int = 2089,
+                 frame_callback=None):
+        # optional `(iteration, poses_w2c (N, 3, 4) numpy) -> None` hook; with
+        # it the trainer syncs every `chunk_steps` steps and calls it at each
+        # sync that is `iterations_output` past the last call, and at the end
+        self.frame_callback = frame_callback
         if cfg.buffer_host_spill:
             raise NotImplementedError(
                 "the host-spill training buffer (--training_buffer_cpu) is not ported yet (ROADMAP.md)")
@@ -319,7 +324,7 @@ class MappingTrainer:
 
     def build_buffer(self) -> dict:
         return fill_training_buffer(
-            self.encoder_params, self.scene.images.canvases, self.scene.images.sizes, self.buffer_cfg,
+            self.encoder_params, self.scene.images.content(), self.scene.images.sizes, self.buffer_cfg,
             target_maps=self._seed_target_maps(), generator=self.generator, pad_rows_to_bucket=True,
         )
 
@@ -354,39 +359,13 @@ class MappingTrainer:
         fill_time = time.time() - t0
         _logger.info("Filled training buffer: %d rows in %.1fs", n_rows, fill_time)
 
-        cfg = self.cfg
-        hp = train_hp(cfg)
         state = self.build_state()
         train_start = time.time()
-        last_logged = 0
-        steps = 0
-        log = []
-        # dispatch up to chunk_steps * sync_every_chunks steps per host sync,
-        # never past the last known max_iterations (steps beyond it would be
-        # gated no-ops); the cooldown can still shrink it within a group
-        group = cfg.chunk_steps * max(1, cfg.sync_every_chunks)
-        it, max_it = 0, cfg.schedule.iterations
-        while it < max_it:
-            n = min(group, max_it - it)
-            state, stats = train_steps(state, buffer, self.ctx, hp, cfg, self.head_cfg, n,
-                                       generator=self.generator)
-            steps += n
-            # one batched fetch per sync: the stop check and the group's stats
-            it, max_it = (int(v) for v in torch.stack([state.iteration, state.sched.max_iterations]).tolist())
-            hist = {k: stats[k].cpu().numpy() for k in ("loss", "batch_inliers", "active")}
-            first_it = it - int(hist["active"].sum())
-            for j in np.flatnonzero(hist["active"]):
-                step_it = first_it + int(np.count_nonzero(hist["active"][: j + 1]))
-                if step_it - last_logged >= cfg.iterations_output or step_it == it >= max_it:
-                    entry = {"iteration": step_it, "loss": float(hist["loss"][j]),
-                             "batch_inliers": float(hist["batch_inliers"][j]), "time": time.time() - t0}
-                    log.append(entry)
-                    _logger.info("Iteration %6d|%6d, loss %.1f, batch inliers %.1f%%", step_it, max_it,
-                                 entry["loss"], entry["batch_inliers"] * 100)
-                    last_logged = step_it
+        state, it, steps, log = self.train_to_budget(state, buffer, t0=t0)
         self._sync()
         train_time = time.time() - train_start
 
+        cfg = self.cfg
         nan_steps = int(state.nan_steps)
         if nan_steps > 0:
             _logger.warning("Skipped %d NaN-loss steps", nan_steps)
@@ -406,6 +385,46 @@ class MappingTrainer:
             "buffer_rows": n_rows,
             "log": log,
         }
+
+    def train_to_budget(self, state: TrainState, buffer: dict, t0: float | None = None):
+        """Train from `state` until the schedule's max_iterations; returns
+        (state, iteration, steps, log).
+
+        Dispatches up to chunk_steps * sync_every_chunks steps per host sync
+        (chunk_steps with a frame callback), never past the last known
+        max_iterations (steps beyond it would be gated no-ops); the cooldown
+        can still shrink it within a group.
+        """
+        cfg = self.cfg
+        hp = train_hp(cfg)
+        t0 = time.time() if t0 is None else t0
+        steps = 0
+        log = []
+        group = cfg.chunk_steps * (1 if self.frame_callback is not None else max(1, cfg.sync_every_chunks))
+        it, max_it = (int(v) for v in torch.stack([state.iteration, state.sched.max_iterations]).tolist())
+        last_logged = last_callback = it
+        while it < max_it:
+            n = min(group, max_it - it)
+            state, stats = train_steps(state, buffer, self.ctx, hp, cfg, self.head_cfg, n,
+                                       generator=self.generator)
+            steps += n
+            # one batched fetch per sync: the stop check and the group's stats
+            it, max_it = (int(v) for v in torch.stack([state.iteration, state.sched.max_iterations]).tolist())
+            hist = {k: stats[k].cpu().numpy() for k in ("loss", "batch_inliers", "active")}
+            first_it = it - int(hist["active"].sum())
+            for j in np.flatnonzero(hist["active"]):
+                step_it = first_it + int(np.count_nonzero(hist["active"][: j + 1]))
+                if step_it - last_logged >= cfg.iterations_output or step_it == it >= max_it:
+                    entry = {"iteration": step_it, "loss": float(hist["loss"][j]),
+                             "batch_inliers": float(hist["batch_inliers"][j]), "time": time.time() - t0}
+                    log.append(entry)
+                    _logger.info("Iteration %6d|%6d, loss %.1f, batch inliers %.1f%%", step_it, max_it,
+                                 entry["loss"], entry["batch_inliers"] * 100)
+                    last_logged = step_it
+            if self.frame_callback is not None and (it - last_callback >= cfg.iterations_output or it >= max_it):
+                self.frame_callback(it, self.current_poses(state))
+                last_callback = it
+        return state, it, steps, log
 
     @torch.no_grad()
     def current_poses(self, state: TrainState) -> np.ndarray:

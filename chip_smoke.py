@@ -33,7 +33,13 @@ Phases:
               configuration: host ms per step over 30 unprofiled steps, then
               device ms, kernels and the top device ops per step over 30
               steps under torch.profiler
-  7 report    one JSON line describing every kernel, then the card's
+  7 pipeline  the reconstruction CLI (acezero_tpu_torch.cli.ace_zero_cli,
+              loop closure off) end to end on the 60 frames with their depth
+              files at full width and cut budgets (PIPELINE_CUTS): seed
+              stage, mapping and registration rounds, final refit; counts
+              zeroed just before and read just after; poses_final.txt
+              scored against the shipped poses after a Sim(3) alignment
+  8 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons). With a
@@ -62,7 +68,7 @@ ENCODER = ROOT / "weights" / "tpu_encoder_v6.pt"
 HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
-PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "profile", "report")
+PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "profile", "pipeline", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -129,6 +135,21 @@ RELOC_SHARE = 0.5  # frames the fixed-pose map must relocalize within 5 cm / 5 d
 # configuration (TrainConfig / BufferConfig overrides, canvas short side)
 PROFILE_STEPS = (20, 30)
 PROFILE_TRAIN, PROFILE_BUFFER, PROFILE_SHORT_SIDE = {}, {}, 480
+# phase pipeline: the reconstruction CLI at full width (480-pixel short side,
+# batch 5,120, the 512-wide head with one extra block, the default buffer)
+# with the budgets cut to fit the phase; the warm-up has no CLI flag and is
+# set on the config that config_from_args built
+PIPELINE_CUTS = {"try_seeds": 3, "seed_iterations": 1000, "iterations": 2000, "cooldown_iterations": 500,
+                 "refit_iterations": 2000, "final_refit_posewait": 500, "iterations_max": 4}
+PIPELINE_OVERRIDES = {"learning_rate_warmup_iterations": 200}
+# The floor of frames registered at confidence 500 by the loop. At these
+# budgets neither package reaches RELOC_SHARE: the JAX package registers
+# 30.0% on this configuration (scripts/pipeline_parity.py, on the CPU) and
+# the port 30.0-33.3% over three base seeds on the card, where the same loop
+# at the full default budgets reaches 76.7% in five rounds. The floor sits
+# three frames under the reference; a loop whose rounds do not train stays
+# at the seed map's 3-12%.
+PIPELINE_SHARE = 0.25
 FRAMES = "frame_*.png"
 N_FRAMES = 60
 DEVICE = "cuda"
@@ -342,9 +363,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from acezero_tpu_torch.cli import register_cli, train_ace_cli
+    from acezero_tpu_torch.cli import ace_zero_cli, register_cli, train_ace_cli
+    from acezero_tpu_torch.evalpose import estimate_alignment, evaluate_poses
     from acezero_tpu_torch.geometry import backproject_depth, get_pixel_grid
-    from acezero_tpu_torch.io.pose_files import read_pose_file
+    from acezero_tpu_torch.io.pose_files import read_pose_file, registration_rates
     from acezero_tpu_torch.models import torch_io
     from acezero_tpu_torch.models.encoder import encoder_apply
     from acezero_tpu_torch.models.head import HeadConfig, head_apply_flat, head_epilogue
@@ -355,6 +377,7 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.data.scene import load_scene
     from acezero_tpu_torch.training import BufferConfig, MappingTrainer, ReproLossConfig, ScheduleConfig, TrainConfig
     from acezero_tpu_torch.training.trainer import train_hp, train_steps
+    from acezero_tpu_torch.utils import profiling
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -620,7 +643,11 @@ def main(argv=None) -> int:
                     map_launches["bwd"] += bwd
                     prelim_path = Path(tmp) / f"poses_{name}_preliminary.txt"
                     prelim = prelim_path.read_text().splitlines()
-                    prelim_r, prelim_t = pose_errors(read_pose_file(prelim_path))
+                    prelim_entries = read_pose_file(prelim_path)
+                    prelim_r, prelim_t = pose_errors(prelim_entries)
+                    # after a Sim(3) alignment onto the shipped poses, since
+                    # pose refinement moves the map's frame as a whole
+                    aligned = evaluate_poses(prelim_entries, [gts[f] for f in sorted(gts)])
                     log = result["log"]
                     steps = result["steps"]
                     rec[name] = {
@@ -631,6 +658,9 @@ def main(argv=None) -> int:
                         "last_log": log[-1] if log else None, "log": log, "focal_refined": result["focal_orig"],
                         "prelim_median_rot_deg": statistics.median(prelim_r),
                         "prelim_median_trans_mm": statistics.median(prelim_t) * 1e3,
+                        "aligned_within_5cm_5deg_pct": aligned.accuracy,
+                        "aligned_median_rot_deg": aligned.median_rot_deg,
+                        "aligned_median_trans_cm": aligned.median_trans_cm, "aligned": aligned.aligned,
                     }
                     require(bwd == steps, f"{name}: K2 launched {bwd} times for {steps} steps")
                     require(fwd >= steps, f"{name}: K1 launched {fwd} times for {steps} steps")
@@ -690,6 +720,49 @@ def main(argv=None) -> int:
                              "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / n for e in top}}
                 del trainer, buffer, state
 
+    pipe_launches = None  # launch counts of phase pipeline
+    if "pipeline" in phases:
+        with phase("pipeline", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi, cuts={**PIPELINE_CUTS, **PIPELINE_OVERRIDES})
+            flags = [f"--{k}={v}" for k, v in PIPELINE_CUTS.items()]
+            with tempfile.TemporaryDirectory() as tmp:
+                argv = [str(SCENE / FRAMES), tmp, "--depth_files", str(SCENE / FRAMES.replace(".png", "_depth.npy")),
+                        "--use_external_focal_length", str(FOCAL), "--encoder_path", str(ENCODER),
+                        "--loop_closure", "false", *flags, "--device", DEVICE]
+                profiling.reset_stages()
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = time.perf_counter()
+                result = ace_zero_cli.main(argv, **PIPELINE_OVERRIDES)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                pipe_launches = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD}
+                lines = (Path(tmp) / "poses_final.txt").read_text().splitlines()
+                entries = read_pose_file(Path(tmp) / "poses_final.txt")
+                artifacts = sorted(p.name for p in Path(tmp).iterdir())
+            gts = [np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in sorted(glob.glob(str(SCENE / FRAMES)))]
+            errors = evaluate_poses(entries, gts)
+            by_name = sorted(entries, key=lambda e: e.rgb_file)
+            _, scale = estimate_alignment(np.stack([e.pose_c2w for e in by_name]), np.stack(gts),
+                                          np.asarray([e.confidence for e in by_name]))
+            rates = registration_rates([e.confidence for e in entries], [500, 1000, 2000, 4000])
+            rec.update(
+                wall_seconds=wall, stage_seconds={k: v[0] for k, v in profiling.stage_totals().items()},
+                stage_calls={k: v[1] for k, v in profiling.stage_totals().items()},
+                rounds=result["iterations"], rate_history=result["rate_history"],
+                registration_rates=dict(zip(("500", "1000", "2000", "4000"), rates)),
+                focal_estimate=result["focal_estimate"], artifacts=artifacts,
+                aligned_within_5cm_5deg_pct=errors.accuracy, aligned=errors.aligned, alignment_scale=scale,
+                median_rot_deg=errors.median_rot_deg, median_trans_cm=errors.median_trans_cm,
+                fused_head_fwd_launches=pipe_launches["fwd"], fused_head_bwd_launches=pipe_launches["bwd"],
+                registered_half=rates[0] >= RELOC_SHARE, report=result["report"])
+            require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
+                    f"poses_final.txt is not {N_FRAMES} lines of 10 tokens")
+            require(all(np.isfinite(e.pose_w2c).all() for e in entries), "non-finite pose in poses_final.txt")
+            require(pipe_launches["fwd"] > 0, "the pipeline never launched fused_head_fwd")
+            require(pipe_launches["bwd"] > 0, "the pipeline never launched fused_head_bwd")
+            require(rates[0] >= PIPELINE_SHARE,
+                    f"the pipeline registered {rates[0]:.1%} of the frames at confidence 500")
+
     if "report" in phases:
         with phase("report", {}):
             def pick(entry, *keys):
@@ -699,14 +772,17 @@ def main(argv=None) -> int:
             k1_reg, k1_map, k2_map = k1.get("registration", {}), k1.get("mapping", {}), k2.get("mapping", {})
             fwd = map_launches["fwd"] if map_launches else 0
             bwd = map_launches["bwd"] if map_launches else 0
+            pipe_fwd = pipe_launches["fwd"] if pipe_launches else 0
+            pipe_bwd = pipe_launches["bwd"] if pipe_launches else 0
             emit(kernels=[{
                 "name": "fused_head_fwd",
                 "route": "cuda",
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:108",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-                "launches": (launches or 0) + fwd,
-                "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None},
+                "launches": (launches or 0) + fwd + pipe_fwd,
+                "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None,
+                                     "pipeline": pipe_fwd if pipe_launches else None},
                 **pick(k1_reg, *fields),
                 "ms": k1_reg.get("kernel_ms"),
                 "shape": pick(k1_reg, "B", "L"),
@@ -723,8 +799,9 @@ def main(argv=None) -> int:
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:112",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
-                "launches": bwd,
-                "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None},
+                "launches": bwd + pipe_bwd,
+                "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None,
+                                     "pipeline": pipe_bwd if pipe_launches else None},
                 **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),
                 "ms": k2_map.get("kernel_ms"),
                 "shape": pick(k2_map, "B", "L"),

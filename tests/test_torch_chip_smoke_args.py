@@ -21,6 +21,7 @@ def test_default_runs_every_phase():
     ("kernels,build", ["device", "build", "kernels"]),
     ("report, mapping", ["device", "mapping", "report"]),
     ("device", ["device"]),
+    ("report,pipeline,profile", ["device", "profile", "pipeline", "report"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -61,3 +62,17 @@ def test_k1_cases_cover_the_tile_edges():
     assert any(B > 2 * chip_smoke.H100_SMS * 64 and B % 64 for B, _ in cases.values())
     assert set(chip_smoke.K1_TIMED) == {"registration", "mapping", "B64", "fill132"}
     assert chip_smoke.K1_TOL == 1e-2
+
+
+def test_pipeline_phase_after_profile_before_report():
+    """Phase pipeline runs the reconstruction CLI after profile and before
+    report, with the cut budgets the phase lists."""
+    phases = list(chip_smoke.PHASES)
+    assert phases.index("profile") + 1 == phases.index("pipeline") == phases.index("report") - 1
+    assert chip_smoke.parse_phases(["--phases", "pipeline"]) == ["device", "pipeline"]
+    assert chip_smoke.PIPELINE_CUTS == {"try_seeds": 3, "seed_iterations": 1000, "iterations": 2000,
+                                        "cooldown_iterations": 500, "refit_iterations": 2000,
+                                        "final_refit_posewait": 500, "iterations_max": 4}
+    assert chip_smoke.PIPELINE_OVERRIDES == {"learning_rate_warmup_iterations": 200}
+    # the reference registers 30% at these budgets, so the floor sits under it
+    assert chip_smoke.PIPELINE_SHARE == 0.25 < chip_smoke.RELOC_SHARE

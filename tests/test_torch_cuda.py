@@ -94,3 +94,34 @@ def test_fused_head_bwd_matches_plain(cuda, B, tags):
         grads.append((wf.grad, bf.grad))
     for got, want in zip(*grads):
         assert float((got - want).norm() / want.norm()) <= 2e-2
+
+
+def test_mini_reconstruction_loop_on_the_card(cuda, tmp_path):
+    """The reconstruction CLI's mini loop (tests/test_pipeline_e2e.py:32's
+    budgets) on 10 chesslike_a frames with their depth files at a 120-pixel
+    short side: the same artifacts as on the CPU, a 10-line poses_final.txt,
+    and both kernels launched by the run."""
+    from pathlib import Path
+
+    from acezero_tpu_torch.cli import ace_zero_cli
+    from acezero_tpu_torch.io.pose_files import read_pose_file
+
+    scene = Path(__file__).resolve().parents[1] / "results" / "heldout" / "scenes" / "chesslike_a"
+    argv = [str(scene / "frame_000?.png"), str(tmp_path), "--depth_files", str(scene / "frame_000?_depth.npy"),
+            "--use_external_focal_length", "520", "--image_resolution", "120", "--try_seeds", "1",
+            "--seed_iterations", "20", "--iterations", "30", "--iterations_max", "2",
+            "--learning_rate_schedule", "constant", "--max_dataset_passes", "2", "--num_head_blocks", "0",
+            "--ransac_iterations", "8", "--registration_confidence", "5", "--final_refine", "false",
+            "--final_refit", "false", "--loop_closure", "false"]
+    fwd, bwd = fh.LAUNCHES, fh.LAUNCHES_BWD
+    result = ace_zero_cli.main(argv, learning_rate_min=0.003, max_training_buffer_size=2048, samples_per_image=128,
+                               batch_size=128, chunk_steps=10, registration_frame_chunk=8, refinement_steps=2)
+    torch.cuda.synchronize()
+    assert fh.LAUNCHES > fwd and fh.LAUNCHES_BWD - bwd == 50  # 20 seed steps + 30 round steps
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert names == ["iteration0_seed0.pt", "iteration1.pt", "poses_final.txt", "poses_iteration0_seed0.txt",
+                     "poses_iteration0_seed0_fastcheck.txt", "poses_iteration1.txt",
+                     "poses_iteration1_preliminary.txt"]
+    entries = read_pose_file(tmp_path / "poses_final.txt")
+    assert len(entries) == 10 and all(np.isfinite(e.pose_w2c).all() for e in entries)
+    assert result["iterations"] == 1 and all(0.0 <= r <= 1.0 for r in result["rate_history"])

@@ -97,6 +97,78 @@ def test_register_frames_matches_jax(setup):
           [(a.confidence, b.confidence) for a, b in zip(ent_t, ent_j)])
 
 
+def _assert_entries_agree(ent_t, ent_j, n_cells=15 * 20):
+    """Same frames, focals and registered set; poses within 1 cm / 0.5° and
+    inlier counts within 5% where JAX found at least 20% inliers."""
+    assert [e.rgb_file for e in ent_t] == [e.rgb_file for e in ent_j]
+    assert [e.focal_length for e in ent_t] == [e.focal_length for e in ent_j]
+    assert [e.confidence > 0 for e in ent_t] == [e.confidence > 0 for e in ent_j]
+    for a, b in zip(ent_t, ent_j):
+        assert np.isfinite(a.pose_w2c).all() and np.isfinite(a.confidence)
+        if b.confidence >= 0.2 * n_cells:
+            pa, pb = a.pose_c2w, b.pose_c2w
+            assert np.linalg.norm(pa[:3, 3] - pb[:3, 3]) < 0.01, a.rgb_file
+            assert _rot_err_deg(pa[:3, :3], pb[:3, :3]) < 0.5, a.rgb_file
+            assert abs(a.confidence - b.confidence) <= 0.05 * b.confidence, a.rgb_file
+
+
+def test_focal_override_matches_jax(setup):
+    """focal_override_orig (JAX driver.py:311-316): canvas focals are the
+    override times each frame's scale factor, and every entry carries the
+    override; the same tolerances as the test above."""
+    scene_j, scene_t, (enc_j, head_j, cfg_j), (enc_t, head_t, cfg_t) = setup
+    cfg_jr, cfg_tr = jdrv.RegistrationConfig(), tdrv.RegistrationConfig()
+    ent_j = jdrv.register_frames(enc_j, head_j, cfg_j, scene_j, cfg_jr, focal_override_orig=565.5)
+    ent_t = tdrv.register_frames(enc_t, head_t, cfg_t, scene_t, cfg_tr, focal_override_orig=565.5,
+                                 device="cpu", hyp_indices=_jax_pass1_draws(scene_j, cfg_jr))
+    assert all(e.focal_length == np.float32(565.5) for e in ent_t)
+    _assert_entries_agree(ent_t, ent_j)
+    plain = tdrv.register_frames(enc_t, head_t, cfg_t, scene_t, cfg_tr, device="cpu",
+                                 hyp_indices=_jax_pass1_draws(scene_j, cfg_jr))
+    assert [e.focal_length for e in plain] == [520.0] * 4
+    assert any(not np.array_equal(a.pose_w2c, b.pose_w2c) for a, b in zip(ent_t, plain))
+
+
+def test_register_frames_multi(setup):
+    """register_frames_multi (JAX driver.py:165-251): the coordinates of
+    each head equal the single-head path's and stay within the coordinate
+    stage's tolerance of JAX's _coords_chunk_multi; each head's entries
+    equal register_frames' with the same draws (the tiers and the retry of
+    register_frames change nothing when no frame fails its draws)."""
+    scene_j, scene_t, (enc_j, head_j, cfg_j), (enc_t, head_t, cfg_t) = setup
+    gen = torch.Generator().manual_seed(4)
+    head_t2 = {**head_t, "fc3": {"w": head_t["fc3"]["w"] * (1 + 0.05 * torch.randn(head_t["fc3"]["w"].shape,
+                                                                                      generator=gen)),
+                                  "b": head_t["fc3"]["b"]}}
+    heads_t = [head_t, head_t2]
+    head_j2 = jax.tree.map(jnp.asarray, {**head_j, "fc3": {"w": head_t2["fc3"]["w"].numpy(),
+                                                             "b": np.asarray(head_j["fc3"]["b"])}})
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), head_j, head_j2)
+    images_t = torch.from_numpy(scene_t.images.canvases)
+    sizes_t = torch.from_numpy(scene_t.images.sizes.astype(np.int64))
+    coords_j, mask_j = jdrv._coords_chunk_multi(enc_j, stacked, cfg_j, scene_j.images.canvases,
+                                                scene_j.images.sizes)
+    coords_t, mask_t = tdrv.coords_chunk_multi(enc_t, heads_t, cfg_t, images_t, sizes_t)
+    assert coords_t.shape == (2, 4, 15, 20, 3)
+    np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
+    np.testing.assert_allclose(coords_t.numpy(), np.asarray(coords_j), rtol=0.05, atol=0.2)
+    for s in range(2):
+        single, _ = tdrv.coords_chunk(enc_t, heads_t[s], cfg_t, images_t, sizes_t)
+        assert torch.equal(coords_t[s], single)
+
+    cfg_tr = tdrv.RegistrationConfig()
+    draws = _jax_pass1_draws(scene_j, jdrv.RegistrationConfig())
+    multi = tdrv.register_frames_multi(enc_t, heads_t, cfg_t, scene_t, cfg_tr, device="cpu",
+                                       hyp_indices=torch.stack([draws, draws.flip(0)]))
+    assert len(multi) == 2
+    for s, d in enumerate((draws, draws.flip(0))):
+        single = tdrv.register_frames(enc_t, heads_t[s], cfg_t, scene_t, cfg_tr, device="cpu", hyp_indices=d)
+        assert [e.rgb_file for e in multi[s]] == [e.rgb_file for e in single]
+        for a, b in zip(multi[s], single):
+            assert a.confidence == b.confidence and a.focal_length == b.focal_length
+            np.testing.assert_array_equal(a.pose_w2c, b.pose_w2c)
+
+
 def test_cli_writes_same_frames_and_format(tmp_path, monkeypatch):
     monkeypatch.setenv("ACEZERO_CACHE_DIR", "0")  # keep the JAX CLI's cache out of the repo
     for name in ("j", "t"):

@@ -234,3 +234,25 @@ def test_host_spill_not_ported():
     with pytest.raises(NotImplementedError, match="training_buffer_cpu"):
         tt.MappingTrainer(_synthetic_scene(data, []), init_encoder_params(torch.Generator().manual_seed(0)),
                           HeadConfig(), tt.TrainConfig(buffer_host_spill=True), BufferConfig())
+
+
+def test_frame_callback_at_every_sync():
+    """The pipeline's per-sync hook (JAX trainer.py:606-609): with a callback
+    the trainer syncs every chunk_steps steps and, with iterations_output at
+    the chunk length, calls it at each sync with the (N, 3, 4) refined
+    world-to-camera poses; the last call comes at the final iteration."""
+    data = render_room_scene(3, h=24, w=32)
+    calls = []
+    cfg = tt.TrainConfig(batch_size=64, chunk_steps=10, sync_every_chunks=4, iterations_output=10,
+                         pose_refinement="mlp",
+                         schedule=ScheduleConfig(schedule="constant", iterations=35, learning_rate_min=0.003),
+                         loss=ReproLossConfig(loss_type="tanh", total_iterations=35))
+    buf_cfg = BufferConfig(max_buffer_size=1024, samples_per_image=64, max_dataset_passes=2, image_chunk=3)
+    trainer = tt.MappingTrainer(_synthetic_scene(data, []), init_encoder_params(torch.Generator().manual_seed(0)),
+                                HeadConfig(), cfg, buf_cfg,
+                                frame_callback=lambda it, poses: calls.append((it, poses)))
+    result = trainer.train()
+    assert [it for it, _ in calls] == [10, 20, 30, 35] and result["iterations"] == 35
+    for _, poses in calls:
+        assert isinstance(poses, np.ndarray) and poses.shape == (3, 3, 4) and np.isfinite(poses).all()
+    np.testing.assert_array_equal(calls[-1][1], result["poses_w2c"])
