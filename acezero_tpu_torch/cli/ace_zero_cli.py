@@ -1,13 +1,13 @@
 """Reconstruction CLI: the ACE0 loop of acezero_tpu_torch.reconstruct.
 
 The flags and defaults of acezero_tpu/cli/ace_zero_cli.py (the reference
-ace_zero.py:33-158), plus --device (default cuda). Loop closure is not
-ported yet, so a run passes `--loop_closure false`; the seed stage needs
-depth files until the learned seed-depth head is ported:
+ace_zero.py:33-158), plus --device (default cuda). Loop closure runs by
+default (`--loop_closure false` turns it off); the seed stage needs depth
+files until the learned seed-depth head is ported:
 
     python -m acezero_tpu_torch.cli.ace_zero_cli '<scene>/*.png' out/ \
         --depth_files '<scene>/*_depth.npy' --use_external_focal_length 520 \
-        --encoder_path weights/tpu_encoder_v6.pt --loop_closure false
+        --encoder_path weights/tpu_encoder_v6.pt
 
 Writes the round artifacts and `poses_final.txt` into the results folder and
 prints the report.

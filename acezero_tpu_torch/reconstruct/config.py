@@ -112,10 +112,7 @@ class AceZeroConfig:
     depth_network: Path | None = None
     registration_frame_chunk: int = 64
 
-    # --- loop closure (beyond the reference) ---
-    # not ported yet: the pipeline raises at construction unless this is
-    # False (the CLI's --loop_closure false); the fields below then change
-    # nothing
+    # --- loop closure (beyond the reference; reconstruct/loopclose.py) ---
     loop_closure: bool = True
     loop_closure_max_frames: int = 256
     loop_closure_probe_frames: int = 32

@@ -1,4 +1,4 @@
-"""The ACE0 reconstruction loop, loop closure off.
+"""The ACE0 reconstruction loop.
 
 Counterpart of acezero_tpu/reconstruct/pipeline.py (`AceZeroPipeline`,
 reference ace_zero.py:160-410): one process holds the scene (decoded once),
@@ -13,14 +13,20 @@ the same stage names for `utils.profiling.stage_report`:
      start) and register all frames, until the registration rate reaches
      `registration_threshold` or grows by less than
      `relative_registration_threshold`, or `iterations_max` is reached;
-  4. one final refine round, then the final refit (dyntanh, circle
-     schedule, pose wait), and `final_refit_cycles - 1` more refit cycles.
+  4. loop closure (reconstruct/loopclose.py) on the registered poses, then
+     one final refine round and the final refit (dyntanh, circle schedule,
+     pose wait; poses frozen when loop closure applied corrections);
+  5. more refit cycles: `final_refit_cycles - 1` on request, and up to
+     `adaptive_refit_max_cycles` while loop closure measures drift;
+  6. with `loopclose_final_graph`, when corrections were applied and the
+     refits did not drain the drift, the corrected pose graph is the final
+     estimate (`poses_iteration{n}_loopclosed.txt`).
 
-Left out of this slice, each raising NotImplementedError at construction:
-loop closure (on by default), the learned seed-depth head (a run without
-`depth_files` and without `seed_network`), calibration files, rendering,
-point-cloud export and the host-spill training buffer. `prewarm` does
-nothing: it hides XLA compile latency, which the port does not have.
+Left out, each raising NotImplementedError at construction: the learned
+seed-depth head (a run without `depth_files` and without `seed_network`),
+calibration files, rendering, point-cloud export and the host-spill
+training buffer. `prewarm` does nothing: it hides XLA compile latency,
+which the port does not have.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from acezero_tpu_torch.models import torch_io
 from acezero_tpu_torch.models.encoder import init_encoder_params
 from acezero_tpu_torch.models.head import HeadConfig
 from acezero_tpu_torch.reconstruct.config import AceZeroConfig
+from acezero_tpu_torch.reconstruct.loopclose import LoopCloseConfig, loop_close_entries
 from acezero_tpu_torch.registration.driver import RegistrationConfig, register_frames, register_frames_multi
 from acezero_tpu_torch.registration.ransac import RansacConfig
 from acezero_tpu_torch.training.buffer import BufferConfig
@@ -62,9 +69,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class AceZeroPipeline:
     def __init__(self, cfg: AceZeroConfig, device=None, encoder_params: dict | None = None):
-        # every branch this slice leaves out raises here, before any work
-        if cfg.loop_closure:
-            raise _not_ported("loop closure (pass --loop_closure false)", "section 1, loop closure")
+        # every branch the port leaves out raises here, before any work
         if cfg.depth_files is None and cfg.seed_network is None:
             raise _not_ported("the learned seed-depth head (pass --depth_files)", "section 1, learned seed depth")
         if cfg.calibration_files is not None:
@@ -111,6 +116,7 @@ class AceZeroPipeline:
             )
         _logger.info("Loaded %d images onto a %dx%d canvas.", len(self.scene), *self.scene.canvas_hw)
         self.depth_files = get_files_from_glob(cfg.depth_files) if cfg.depth_files is not None else None
+        self._probe_memo = None  # see _loop_close
 
     # ------------------------------------------------------------- configs
 
@@ -308,11 +314,64 @@ class AceZeroPipeline:
             write_pose_file(self.out / f"poses_{iteration_id}.txt", entries)
         return entries
 
+    def _loop_close(self, entries: list[PoseFileEntry], head_params: dict,
+                    focal_estimate: float | None) -> tuple[list[PoseFileEntry], dict]:
+        """Loop closure on the current map (reconstruct/loopclose.py), run
+        right before a refit so the fresh network trains from corrected poses.
+        Returns (entries, diagnostics): the entries unchanged when disabled,
+        degenerate or drift-free; the diagnostics' median correction gates
+        the adaptive refit cycles."""
+        cfg = self.cfg
+        if not cfg.loop_closure:
+            return entries, {"skipped": "disabled"}
+        rate_now = self._rate(entries)
+        # probe memo: an earlier probe of this run measured drift well under
+        # the gate and registration has not degraded since, so the refit in
+        # between trained from those very poses: skip re-measuring (parity
+        # with the JAX package, which documents it as a known shortcut)
+        memo = self._probe_memo
+        if memo is not None and rate_now >= memo["rate"] - 0.01:
+            _logger.info("Loop-closure probe memo: previous probe was drift-free with margin "
+                         "(%.2f cm / %.3f deg) and registration held — skipping.",
+                         memo["median_corr_t"] * 100, memo["median_corr_rot_deg"])
+            return entries, {**memo["diag"], "skipped": "probe_memo"}
+
+        # drift pre-probe on an evenly strided subgraph (no BA); only when it
+        # trips the drift gate does the full measurement run
+        probe_n = cfg.loop_closure_probe_frames
+        n_conf = sum(e.confidence >= cfg.registration_confidence for e in entries)
+        if 0 < probe_n * 2 <= n_conf:
+            with stage("loop_closure_probe", trace=True):
+                _, probe_diag = loop_close_entries(
+                    self.encoder_params, head_params, self.head_cfg, self.scene, entries,
+                    conf_threshold=cfg.registration_confidence, focal_override_orig=focal_estimate,
+                    cfg=replace(LoopCloseConfig(), ba="off"), max_frames=probe_n, device=self.device)
+            # an inconclusive probe (degenerate subgraph) falls through
+            if "skipped" not in probe_diag and not self._drift_detected(probe_diag):
+                _logger.info("Loop-closure probe: no drift (median %.2f cm / %.3f deg) — skipping the full "
+                             "measurement.", probe_diag.get("median_corr_t", 0.0) * 100,
+                             probe_diag.get("median_corr_rot_deg", 0.0))
+                probe_diag["skipped"] = "probe_no_drift"
+                # memoize strongly drift-free probes (half the gate)
+                t_gate = max(0.005 * probe_diag.get("scene_diag", 0.0), 0.01)
+                corr_t = probe_diag.get("median_corr_t", 0.0)
+                corr_r = probe_diag.get("median_corr_rot_deg", 0.0)
+                if corr_t < 0.5 * t_gate and corr_r < 0.25:
+                    self._probe_memo = {"rate": rate_now, "median_corr_t": corr_t, "median_corr_rot_deg": corr_r,
+                                        "diag": dict(probe_diag)}
+                return entries, probe_diag
+
+        self._probe_memo = None  # geometry is about to be measured and corrected
+        with stage("loop_closure", trace=True):
+            return loop_close_entries(
+                self.encoder_params, head_params, self.head_cfg, self.scene, entries,
+                conf_threshold=cfg.registration_confidence, focal_override_orig=focal_estimate,
+                max_frames=cfg.loop_closure_max_frames, device=self.device)
+
     def _drift_detected(self, lc_diag: dict) -> bool:
         """True when loop closure measured corrections too large for one
-        refit to drain (the JAX package's adaptive-cycle trigger): a median
-        correction above 0.5% of the scene diagonal (at least 1 cm) or
-        0.5°. Loop closure is not ported yet, so nothing calls it."""
+        refit to drain (the adaptive-cycle trigger): a median correction
+        above 0.5% of the scene diagonal (at least 1 cm) or 0.5°."""
         if "skipped" in lc_diag:
             return False
         t_gate = max(0.005 * lc_diag.get("scene_diag", 0.0), 0.01)
@@ -376,6 +435,7 @@ class AceZeroPipeline:
         scheduled_to_stop_early = False
         focal_estimate: float | None = None
         iteration = 0
+        lc_applied = False  # loop closure applied corrections before this refit
         rate_history = [max_rate]
 
         # ------------------------- main loop ------------------------------
@@ -387,7 +447,9 @@ class AceZeroPipeline:
             _logger.info("%s: mapping on %d confident frames%s", iteration_id, len(mapping_scene),
                          " (final refit)" if refit_round else "")
             if refit_round:
-                train_cfg, init_head = self._refit_train_cfg(), None  # a fresh network (ace_zero.py:269-272)
+                # a fresh network (ace_zero.py:269-272)
+                train_cfg = self._refit_train_cfg(freeze_poses=cfg.loopclose_refit_freeze_poses and lc_applied)
+                init_head = None
             else:
                 train_cfg = self._base_train_cfg(cfg.iterations, use_depth=False, refine=True)
                 warm = cfg.warmstart and (iteration > 1 or cfg.seed_network is not None)
@@ -422,15 +484,39 @@ class AceZeroPipeline:
                 scheduled_to_stop_early = True
             if iteration >= cfg.iterations_max - 2:
                 scheduled_to_stop_early = True
+            if scheduled_to_stop_early:
+                # drain the accumulated drift before the final refit retrains
+                # the map from these poses
+                entries, lc_diag = self._loop_close(entries, head_params, focal_estimate)
+                lc_applied = "skipped" not in lc_diag and self._drift_detected(lc_diag)
             max_rate = max(rate, max_rate)
 
-        # ------- extra refit cycles (final_refit_cycles > 1; loop closure off) -------
-        for extra in range(1, max(1, cfg.final_refit_cycles) if cfg.final_refit else 1):
+        # ---------------- extra refit cycles (drift drain) ----------------
+        # refit -> register again while the recipe asks for it
+        # (final_refit_cycles > 1) or loop closure measures drift one refit
+        # cannot have drained (at most adaptive_refit_max_cycles); forward
+        # scans measure millimetres and keep the reference's single pass
+        extra = 0
+        drift_converged = False  # left through a measured-no-drift break
+        while cfg.final_refit:
+            extra += 1
+            explicit = extra < max(1, cfg.final_refit_cycles)
+            if not explicit and not (cfg.loop_closure and extra <= cfg.adaptive_refit_max_cycles):
+                break
+            corrected, lc_diag = self._loop_close(entries, head_params, focal_estimate)
+            if not explicit and not self._drift_detected(lc_diag):
+                drift_converged = True
+                break  # converged: keep the uncorrected (registration) poses
+            lc_applied = "skipped" not in lc_diag and self._drift_detected(lc_diag)
+            entries = corrected
             iteration += 1
             iteration_id = f"iteration{iteration}"
             mapping_scene = self._mapping_scene_from_entries(entries)
-            _logger.info("%s: extra refit cycle %d on %d frames", iteration_id, extra, len(mapping_scene))
-            result = self._train(mapping_scene, self._refit_train_cfg(), None, cfg.base_seed + extra)
+            freeze = cfg.loopclose_refit_freeze_poses and lc_applied
+            _logger.info("%s: extra refit cycle %d on %d frames%s", iteration_id, extra, len(mapping_scene),
+                         " (poses frozen: adopting loop-closure geometry)" if freeze else "")
+            result = self._train(mapping_scene, self._refit_train_cfg(freeze_poses=freeze), None,
+                                 cfg.base_seed + extra)
             head_params = result["head_params"]
             with stage("artifacts"):
                 torch_io.save_head(self.out / f"{iteration_id}.pt", head_params, self.head_cfg)
@@ -439,6 +525,23 @@ class AceZeroPipeline:
             rate = self._rate(entries)
             _logger.info("%s: registered %.1f%% of all frames.", iteration_id, rate * 100)
             rate_history.append(rate)
+
+        # ---------- final consistency choice (ring drift) ----------
+        # when loop closure applied corrections and the refits did not drain
+        # the drift, the refit map is a compromise registration re-anchors
+        # onto: measure once more and emit the corrected pose graph instead.
+        # Forward scans never apply corrections, so this costs them nothing.
+        if cfg.final_refit and cfg.loop_closure and cfg.loopclose_final_graph and lc_applied \
+                and not drift_converged:
+            corrected, lc_diag = self._loop_close(entries, head_params, focal_estimate)
+            if "skipped" not in lc_diag and self._drift_detected(lc_diag):
+                _logger.info("Final drift check: refit cycles did not drain the measured drift (median %.2f cm "
+                             "/ %.3f deg) — emitting the loop-closure-corrected pose graph as the final estimate.",
+                             lc_diag.get("median_corr_t", 0.0) * 100, lc_diag.get("median_corr_rot_deg", 0.0))
+                entries = corrected
+                iteration_id = f"iteration{iteration}_loopclosed"
+                with stage("artifacts"):
+                    write_pose_file(self.out / f"poses_{iteration_id}.txt", entries)
 
         # ------------------------- outputs --------------------------------
         total_time = time.time() - t_start

@@ -29,17 +29,29 @@ Phases:
               poses held fixed, counts zeroed just before each run and read
               just after; then the register CLI relocalizes the 60 frames
               against the fixed-pose map
-  6 profile   where a mapping step's time goes, for each mapping run's
+  6 loopclose loop closure (loop_close_entries) at full width on the 60
+              frames at their shipped poses against the fixed-pose map of
+              phase mapping (a shorter one is trained when mapping did not
+              run): coordinate maps and features (K1), the pairwise Sim(3)
+              fits, the pose graph, sub-pixel refinement and the track BA,
+              each timed; counts zeroed just before and read just after;
+              then loop_close_core on the card and on the CPU, on exact
+              drifted maps of 16 frames (every fit and correction must
+              agree) and on the card's maps and features of a 16-frame
+              subgraph (the same edges; LOOPCLOSE_TOL_*)
+  7 profile   where a mapping step's time goes, for each mapping run's
               configuration: host ms per step over 30 unprofiled steps, then
               device ms, kernels and the top device ops per step over 30
               steps under torch.profiler
-  7 pipeline  the reconstruction CLI (acezero_tpu_torch.cli.ace_zero_cli,
-              loop closure off) end to end on the 60 frames with their depth
+  8 pipeline  the reconstruction CLI (acezero_tpu_torch.cli.ace_zero_cli,
+              loop closure on) end to end on the 60 frames with their depth
               files at full width and cut budgets (PIPELINE_CUTS): seed
-              stage, mapping and registration rounds, final refit; counts
-              zeroed just before and read just after; poses_final.txt
-              scored against the shipped poses after a Sim(3) alignment
-  8 report    one JSON line describing every kernel, then the card's
+              stage, mapping and registration rounds, loop closure, final
+              refit and adaptive refit cycles; counts zeroed just before and
+              read just after; every loop-closure call's diagnostics;
+              poses_final.txt scored against the shipped poses after a
+              Sim(3) alignment
+  9 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons). With a
@@ -68,7 +80,8 @@ ENCODER = ROOT / "weights" / "tpu_encoder_v6.pt"
 HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
-PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "profile", "pipeline", "report")
+PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
+          "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -131,6 +144,27 @@ MAPPING_RUNS = {
                                        "--learning_rate_cooldown_iterations", "1500", "--iterations_output", "1000"],
 }
 RELOC_SHARE = 0.5  # frames the fixed-pose map must relocalize within 5 cm / 5 deg
+# phase loopclose: the map when phase mapping did not run (its fixed-pose
+# run, cut to 3,000 iterations); the card against the CPU, float32 on both
+# (cuSOLVER's eigensolves and cuBLAS's sums, TF32 off, round otherwise than
+# the CPU's), through loop_close_core on this many frames:
+# - exact maps (drifted_chesslike at 60 x 80 cells): the same selected pairs
+#   and edges, and every pairwise Sim(3) fit and every frame's correction
+#   within LOOPCLOSE_TOL_DIAG of the scene diagonal and LOOPCLOSE_TOL_DEG,
+#   scales within LOOPCLOSE_TOL_SCALE;
+# - the card's learned maps and features of an evenly strided subgraph: the
+#   same edge count. Their fits and corrections are printed beside the CPU's
+#   own spread under 1e-6 relative noise on the maps, not held: on a learned
+#   map near-tied cosine matches flip between the devices, and the pose graph
+#   is ill-conditioned (that noise alone moves the median frame by 4 mm /
+#   0.031 deg and a tenth of the frames by 0.8 m / 16 deg on a scene of
+#   11.3 m, in the JAX package as in the port; scripts/loopclose_parity.py).
+LOOPCLOSE_MAP = MAPPING_SCHEDULE + ["--iterations", "3000", "--learning_rate_warmup_iterations", "300",
+                                    "--learning_rate_cooldown_iterations", "500", "--iterations_output", "1000"]
+LOOPCLOSE_CPU_FRAMES = 16
+LOOPCLOSE_TOL_DIAG = 1e-3
+LOOPCLOSE_TOL_DEG = 0.05
+LOOPCLOSE_TOL_SCALE = 1e-3
 # phase profile: warm-up and profiled steps at the mapping runs' full-size
 # configuration (TrainConfig / BufferConfig overrides, canvas short side)
 PROFILE_STEPS = (20, 30)
@@ -331,8 +365,127 @@ def synced_clock(torch) -> float:
     return time.perf_counter()
 
 
+@contextlib.contextmanager
+def k1_shapes(fh, into: list):
+    """Appends [B, L] of every K1 launch made inside the block to `into`,
+    read off the wrapper's own calls (the launch count stays the
+    wrapper's)."""
+    real = fh.fused_head_chain
+
+    def recorded(x, w_stack, b_stack, res_after):
+        out = real(x, w_stack, b_stack, res_after)
+        if x.device.type == "cuda":
+            into.append([int(x.shape[0]), len(res_after)])
+        return out
+
+    fh.fused_head_chain = recorded
+    try:
+        yield into
+    finally:
+        fh.fused_head_chain = real
+
+
 def rot_err_deg(np, Ra, Rb) -> float:
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1) / 2, -1, 1))))
+
+
+def angle_deg(np, Ra, Rb):
+    """Angles in degrees of Ra Rb^T over stacks of rotations, through scipy's
+    rotation vectors (float32 matrices are orthonormal only to 1e-7, which an
+    arccos of the trace turns into hundredths of a degree)."""
+    from scipy.spatial.transform import Rotation
+
+    rel = np.asarray(Ra, np.float64) @ np.swapaxes(np.asarray(Rb, np.float64), -1, -2)
+    return np.degrees(np.linalg.norm(Rotation.from_matrix(rel).as_rotvec(), axis=-1))
+
+
+def drifted_chesslike(np, frames: int, stride: int = 16):
+    """Exact coordinate maps of `frames` evenly strided chesslike_a frames
+    from their shipped depth and poses at cell pitch `stride` of the 480 x
+    640 images (a 240 x 320 canvas at stride 16), Random-Fourier features of
+    the true points, and a smooth per-frame Sim(3) drift injected into the
+    maps and the poses (tests/test_loopclose.py's recipe, in numpy).
+    Returns (maps, feats, w2c, focals, canvas_hw)."""
+    from scipy.spatial.transform import Rotation
+
+    idx = np.round(np.linspace(0, 59, frames)).astype(int)
+    scale = 8 / stride
+    f = FOCAL * scale
+    H, W = int(480 * scale), int(640 * scale)
+    rng = np.random.default_rng(17)
+    freqs = rng.normal(size=(3, 96)) * rng.uniform(1.0, 6.0, 96)
+    phase = rng.uniform(0, 2 * np.pi, 96)
+    maps, feats, w2c = [], [], []
+    for k, i in enumerate(idx):
+        depth = np.load(SCENE / f"frame_{i:04d}_depth.npy")[stride // 2 :: stride, stride // 2 :: stride]
+        c2w = np.loadtxt(SCENE / f"frame_{i:04d}_pose.txt")
+        v, u = np.mgrid[: depth.shape[0], : depth.shape[1]] * 8.0 + 4.0
+        cam = np.stack([(u - W / 2) / f * depth, (v - H / 2) / f * depth, depth], -1)
+        X = cam @ c2w[:3, :3].T + c2w[:3, 3]
+        fe = np.sin(X @ freqs + phase)
+        feats.append(fe / np.linalg.norm(fe, axis=-1, keepdims=True))
+        a = np.sin(np.pi * k / frames) ** 2
+        R = Rotation.from_rotvec(rng.normal(size=3) / np.sqrt(3) * np.radians(3.0) * a).as_matrix()
+        t = rng.normal(size=3) / np.sqrt(3) * 0.1 * a
+        maps.append(X @ R.T + t)
+        c2w_d = np.eye(4)
+        c2w_d[:3, :3] = R @ c2w[:3, :3]
+        c2w_d[:3, 3] = R @ c2w[:3, 3] + t
+        w2c.append(np.linalg.inv(c2w_d))
+    return (np.stack(maps).astype(np.float32), np.stack(feats).astype(np.float32), np.stack(w2c),
+            np.full(frames, f, np.float32), (H, W))
+
+
+def core_with_fits(np, lc, *args):
+    """lc.loop_close_core(*args) and the pairwise Sim(3) fits it made, read
+    off its own calls: (s, R, t, diag, fits), fits mapping each selected
+    pair of graph frames (i, j) to (R, t, n_inliers) on the host."""
+    selected, results = [], []
+    real_select, real_fit = lc.select_pairs, lc.pairwise_sim3
+
+    def select(*a, **k):
+        selected.append(real_select(*a, **k))
+        return selected[-1]
+
+    def fit(*a, **k):
+        res = real_fit(*a, **k)
+        results.append([res[key].cpu().numpy() for key in ("R", "t", "n_inliers")])
+        return res
+
+    lc.select_pairs, lc.pairwise_sim3 = select, fit
+    try:
+        s, R, t, diag = lc.loop_close_core(*args)
+    finally:
+        lc.select_pairs, lc.pairwise_sim3 = real_select, real_fit
+    fits = {}
+    if results:
+        Rs, ts, ns = (np.concatenate(part) for part in zip(*results))
+        fits = {(int(i), int(j)): (Rs[e], ts[e], int(ns[e])) for e, (i, j) in enumerate(selected[0])}
+    return s, R, t, diag, fits
+
+
+def card_vs_cpu(np, card, cpu):
+    """The differences between two core_with_fits results: edge counts, the
+    selected pairs, every common pair's fit and every frame's correction
+    (translations in the scene's units, angles in degrees; p50, p90, max)."""
+    (s_g, R_g, t_g, d_g, f_g), (s_c, R_c, t_c, d_c, f_c) = card, cpu
+
+    def quantiles(a):
+        return dict(zip(("p50", "p90", "max"), np.quantile(a, [0.5, 0.9, 1.0]).tolist()))
+
+    common = sorted(set(f_g) & set(f_c))
+    fits = None
+    if common:
+        fits = {"trans": quantiles([np.linalg.norm(f_g[p][1] - f_c[p][1]) for p in common]),
+                "rot_deg": quantiles(angle_deg(np, np.stack([f_g[p][0] for p in common]),
+                                               np.stack([f_c[p][0] for p in common]))),
+                "inliers_equal": float(np.mean([f_g[p][2] == f_c[p][2] for p in common]))}
+    return {"edges_card": d_g.get("edges"), "edges_cpu": d_c.get("edges"), "scene_diag": d_c.get("scene_diag"),
+            "pairs_card": len(f_g), "pairs_cpu": len(f_c), "pairs_equal": sorted(f_g) == sorted(f_c),
+            "edge_fits": fits,
+            "frame_corrections": {"trans": quantiles(np.linalg.norm(t_g - t_c, axis=1)),
+                                  "rot_deg": quantiles(angle_deg(np, R_g, R_c)),
+                                  "scale_max": float(np.abs(s_g - s_c).max())}}
 
 
 def parse_phases(argv) -> list[str]:
@@ -370,6 +523,9 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.models import torch_io
     from acezero_tpu_torch.models.encoder import encoder_apply
     from acezero_tpu_torch.models.head import HeadConfig, head_apply_flat, head_epilogue
+    from acezero_tpu_torch.io.pose_files import PoseFileEntry
+    from acezero_tpu_torch.reconstruct import loopclose as lc
+    from acezero_tpu_torch.reconstruct import pipeline as tpipe
     from acezero_tpu_torch.ops import build
     from acezero_tpu_torch.ops import fused_head as fh
     from acezero_tpu_torch.registration.driver import _canvas_prologue
@@ -400,7 +556,9 @@ def main(argv=None) -> int:
                                         if "registers" in ln or "spill" in ln or "warpgroup" in ln or "wgmma" in ln][:8]
 
     k1, k2 = {}, {}  # timed cases, by name
-    launches = map_launches = None  # launch counts of phases slice and mapping
+    launches = map_launches = lc_launches = None  # launch counts of phases slice, mapping, loopclose
+    lc_shapes = None  # [B, L] of each K1 launch of phase loopclose
+    map_head = None  # (HeadConfig, params) of phase mapping's fixed-pose run
     if "kernels" in phases:
         with phase("kernels", {}) as rec:
             results = []
@@ -669,6 +827,7 @@ def main(argv=None) -> int:
                     require(len(prelim) == N_FRAMES and all(len(ln.split()) == 10 for ln in prelim),
                             f"{name}: preliminary pose file is not {N_FRAMES} lines of 10 tokens")
 
+                map_head = torch_io.load_head(Path(tmp) / "fixed_poses.pt", DEVICE)  # for phase loopclose
                 # relocalize the 60 frames against the map trained on their poses
                 argv = [str(SCENE / FRAMES), str(Path(tmp) / "fixed_poses.pt"), "--encoder_path", str(ENCODER),
                         "--use_external_focal_length", str(FOCAL), "--session", "reloc", "--device", DEVICE]
@@ -684,6 +843,131 @@ def main(argv=None) -> int:
             require(len(entries) == N_FRAMES, f"registered {len(entries)} of {N_FRAMES} frames")
             require(good >= RELOC_SHARE * N_FRAMES,
                     f"the trained map relocalizes {good} of {N_FRAMES} frames within 5 cm / 5 deg")
+
+    if "loopclose" in phases:
+        with phase("loopclose", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi)
+            gt_files = sorted(glob.glob(str(SCENE / FRAMES)))
+            if map_head is None:
+                with tempfile.TemporaryDirectory() as tmp:
+                    train_ace_cli.main([str(SCENE / FRAMES), str(Path(tmp) / "map.pt"), "--pose_files",
+                                        str(SCENE / FRAMES.replace(".png", "_pose.txt")), "--use_external_focal_length",
+                                        str(FOCAL), "--encoder_path", str(ENCODER), "--device", DEVICE, *LOOPCLOSE_MAP])
+                    map_head = torch_io.load_head(Path(tmp) / "map.pt", DEVICE)
+                rec["map"] = "LOOPCLOSE_MAP, trained in this phase"
+            else:
+                rec["map"] = "phase mapping, run fixed_poses"
+            head_cfg_m, head_m = map_head
+            enc = torch_io.load_encoder(ENCODER, DEVICE)
+            scene = load_scene(str(SCENE / FRAMES), external_focal_length=FOCAL)
+            gts = {f: np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in gt_files}
+            entries = [PoseFileEntry(f, np.linalg.inv(gts[f]), FOCAL, 2000.0) for f in scene.rgb_files]
+            # every sub-stage timed (the card synchronized around each call)
+            # and the coordinate maps and features kept for the CPU check
+            seconds, calls, kept, pairs_fit = {}, {}, [], []
+            names = {"coords_feats": "coords_feats_chunk", "pairwise_fits": "pairwise_sim3",
+                     "graph_solve": "solve_pose_graph", "subpix": "refine_matches_photometric",
+                     "ba": "refine_poses_ba"}
+            originals = {attr: getattr(lc, attr) for attr in names.values()}
+
+            def timed(name, fn):
+                def wrapped(*a, **k):
+                    t0 = synced_clock(torch)
+                    out = fn(*a, **k)
+                    seconds[name] = seconds.get(name, 0.0) + synced_clock(torch) - t0
+                    calls[name] = calls.get(name, 0) + 1
+                    if name == "coords_feats":
+                        kept.append(out)
+                    if name == "pairwise_fits":
+                        pairs_fit.append(len(a[0]))
+                    return out
+                return wrapped
+
+            for name, attr in names.items():
+                setattr(lc, attr, timed(name, originals[attr]))
+            try:
+                lc_shapes = []
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = synced_clock(torch)
+                with k1_shapes(fh, lc_shapes):
+                    corrected, diag = lc.loop_close_entries(enc, head_m, head_cfg_m, scene, entries,
+                                                            conf_threshold=500.0, device=DEVICE)
+                wall = synced_clock(torch) - t0
+                lc_launches = fh.LAUNCHES
+                lc_bwd = fh.LAUNCHES_BWD
+            finally:
+                for attr, fn in originals.items():
+                    setattr(lc, attr, fn)
+            require("skipped" not in diag, f"loop closure skipped: {diag.get('skipped')}")
+            require(lc_launches > 0, "loop closure never launched fused_head_fwd")
+            require(lc_bwd == 0, "loop closure launched the backward kernel")
+            moved = [float(np.linalg.norm(e.pose_c2w[:3, 3] - gts[e.rgb_file][:3, 3])) for e in corrected]
+            aligned = evaluate_poses(corrected, [gts[f] for f in gt_files])
+            rec.update(
+                call_seconds=wall, stage_seconds=seconds, stage_calls=calls, pairs=sum(pairs_fit),
+                fused_head_fwd_launches=lc_launches, fused_head_fwd_shapes=lc_shapes,
+                diagnostics={k: diag.get(k) for k in ("edges", "median_edge_rms", "median_corr_t", "median_corr_rot_deg",
+                                                     "scene_diag", "graph_residual_rot_deg", "graph_residual_t")},
+                subpix=diag.get("subpix"), ba=diag.get("ba"),
+                drift_detected=tpipe.AceZeroPipeline._drift_detected(None, diag),
+                median_correction_cm=statistics.median(moved) * 100,
+                corrected_within_5cm_5deg_pct=aligned.accuracy, corrected_median_rot_deg=aligned.median_rot_deg,
+                corrected_median_trans_cm=aligned.median_trans_cm)
+            require(len(corrected) == N_FRAMES and all(np.isfinite(e.pose_w2c).all() for e in corrected),
+                    "non-finite corrected pose")
+
+            # the card against the CPU (float32 on both), on exact maps held
+            # edge by edge and frame by frame, on the card's learned maps
+            # held to the same edges (LOOPCLOSE_TOL_*)
+            maps, fts, w2c_x, foc_x, hw_x = drifted_chesslike(np, LOOPCLOSE_CPU_FRAMES, stride=8)
+            cores = {}
+            for dev in (DEVICE, "cpu"):
+                t0 = synced_clock(torch)
+                cores[dev] = core_with_fits(np, lc, torch.from_numpy(maps).to(dev), torch.from_numpy(fts).to(dev),
+                                            torch.ones(maps.shape[:3], dtype=torch.bool, device=dev), w2c_x,
+                                            np.full(len(maps), 2000.0), foc_x, hw_x, 500.0)
+                rec[f"exact_{dev}_seconds"] = synced_clock(torch) - t0
+            exact = rec["card_vs_cpu_exact_maps"] = {"frames": len(maps), "cells": list(maps.shape[1:3]),
+                                                     **card_vs_cpu(np, cores[DEVICE], cores["cpu"])}
+            rec["tolerance"] = {"of_scene_diag": LOOPCLOSE_TOL_DIAG, "deg": LOOPCLOSE_TOL_DEG,
+                                "scale": LOOPCLOSE_TOL_SCALE}
+            require("skipped" not in cores[DEVICE][3] and "skipped" not in cores["cpu"][3],
+                    f"exact maps skipped: card {cores[DEVICE][3].get('skipped')}, cpu {cores['cpu'][3].get('skipped')}")
+            tol_t = LOOPCLOSE_TOL_DIAG * exact["scene_diag"]
+            require(exact["pairs_equal"] and exact["edges_card"] == exact["edges_cpu"],
+                    f"card and CPU select other pairs or keep other edges on exact maps: {exact}")
+            fits = exact["edge_fits"]
+            require(fits["trans"]["max"] <= tol_t and fits["rot_deg"]["max"] <= LOOPCLOSE_TOL_DEG,
+                    f"card and CPU pairwise fits differ on exact maps: {fits}")
+            frames = exact["frame_corrections"]
+            require(frames["trans"]["max"] <= tol_t and frames["rot_deg"]["max"] <= LOOPCLOSE_TOL_DEG
+                    and frames["scale_max"] <= LOOPCLOSE_TOL_SCALE,
+                    f"card and CPU corrections differ on exact maps: {frames}")
+
+            coords, mask_lr, feats = (torch.cat([k[i] for k in kept]) for i in range(3))
+            sel = np.round(np.linspace(0, len(scene) - 1, LOOPCLOSE_CPU_FRAMES)).astype(int)
+            w2c = np.stack([e.pose_w2c for e in entries])[sel]
+            sub_args = (w2c, np.full(len(sel), 2000.0), scene.focals_canvas[sel], scene.canvas_hw, 500.0)
+            for dev in (DEVICE, "cpu"):
+                t0 = synced_clock(torch)
+                cores[dev] = core_with_fits(np, lc, coords[sel].to(dev), feats[sel].to(dev), mask_lr[sel].to(dev),
+                                            *sub_args)
+                rec[f"subgraph_{dev}_seconds"] = synced_clock(torch) - t0
+            # the CPU's own spread: the same subgraph, maps times (1 + 1e-6 noise)
+            c_cpu = coords[sel].cpu().double()
+            noisy = (c_cpu * (1 + 1e-6 * torch.randn(c_cpu.shape, generator=torch.Generator().manual_seed(0),
+                                                     dtype=torch.float64))).float()
+            learned = rec["card_vs_cpu_learned_maps"] = {
+                "frames": len(sel), **card_vs_cpu(np, cores[DEVICE], cores["cpu"]),
+                "cpu_spread_under_1e-6_noise": card_vs_cpu(np, core_with_fits(np, lc, noisy, feats[sel].cpu(),
+                                                                              mask_lr[sel].cpu(), *sub_args),
+                                                           cores["cpu"])}
+            require("skipped" not in cores[DEVICE][3] and "skipped" not in cores["cpu"][3],
+                    f"subgraph skipped: card {cores[DEVICE][3].get('skipped')}, cpu {cores['cpu'][3].get('skipped')}")
+            require(learned["edges_card"] == learned["edges_cpu"],
+                    f"card and CPU keep other edges on the learned maps: {learned}")
+            del kept, coords, feats, mask_lr
+            torch.cuda.empty_cache()
 
     if "profile" in phases:
         with phase("profile", {}) as rec:
@@ -725,17 +1009,48 @@ def main(argv=None) -> int:
         with phase("pipeline", {}) as rec:
             rec.update(kind=kind, nvidia_smi=smi, cuts={**PIPELINE_CUTS, **PIPELINE_OVERRIDES})
             flags = [f"--{k}={v}" for k, v in PIPELINE_CUTS.items()]
+            # every loop-closure call of the run: its diagnostics, seconds and
+            # K1 launches, read off the pipeline's own call
+            lc_calls = []
+            real_lce = tpipe.loop_close_entries
+
+            def recorded_lce(*a, **k):
+                before, shapes = fh.LAUNCHES, []
+                t0 = synced_clock(torch)
+                with k1_shapes(fh, shapes):
+                    out, diag = real_lce(*a, **k)
+                sp, ba = diag.get("subpix"), diag.get("ba") or {}
+                lc_calls.append({
+                    "max_frames": k.get("max_frames"), "ba_mode": k["cfg"].ba if "cfg" in k else "subpix",
+                    "seconds": synced_clock(torch) - t0, "fused_head_fwd_launches": fh.LAUNCHES - before,
+                    "fused_head_fwd_shapes": shapes,
+                    **{key: diag.get(key) for key in ("skipped", "edges", "median_edge_rms", "median_corr_t",
+                                                      "median_corr_rot_deg", "scene_diag")},
+                    "drift_detected": tpipe.AceZeroPipeline._drift_detected(None, diag),
+                    "subpix_accepted_of_selected": [sp["n_accepted"], sp["n_selected"]] if sp else None,
+                    "ba_rms_px_first_last": [ba["rms_px_first"], ba["rms_px_last"]] if "rms_px_first" in ba else None,
+                    "ba_skipped": ba.get("skipped"),
+                })
+                emit(phase="pipeline", event="loop_closure", **lc_calls[-1])
+                return out, diag
+
             with tempfile.TemporaryDirectory() as tmp:
                 argv = [str(SCENE / FRAMES), tmp, "--depth_files", str(SCENE / FRAMES.replace(".png", "_depth.npy")),
                         "--use_external_focal_length", str(FOCAL), "--encoder_path", str(ENCODER),
-                        "--loop_closure", "false", *flags, "--device", DEVICE]
+                        *flags, "--device", DEVICE]
                 profiling.reset_stages()
-                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
-                t0 = time.perf_counter()
-                result = ace_zero_cli.main(argv, **PIPELINE_OVERRIDES)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                pipe_launches = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD}
+                tpipe.loop_close_entries = recorded_lce
+                try:
+                    fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                    t0 = time.perf_counter()
+                    result = ace_zero_cli.main(argv, **PIPELINE_OVERRIDES)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    tpipe.loop_close_entries = real_lce
+                pipe_launches = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                 "loop_closure": sum(c["fused_head_fwd_launches"] for c in lc_calls),
+                                 "loop_closure_shapes": [sh for c in lc_calls for sh in c["fused_head_fwd_shapes"]]}
                 lines = (Path(tmp) / "poses_final.txt").read_text().splitlines()
                 entries = read_pose_file(Path(tmp) / "poses_final.txt")
                 artifacts = sorted(p.name for p in Path(tmp).iterdir())
@@ -754,6 +1069,10 @@ def main(argv=None) -> int:
                 aligned_within_5cm_5deg_pct=errors.accuracy, aligned=errors.aligned, alignment_scale=scale,
                 median_rot_deg=errors.median_rot_deg, median_trans_cm=errors.median_trans_cm,
                 fused_head_fwd_launches=pipe_launches["fwd"], fused_head_bwd_launches=pipe_launches["bwd"],
+                loop_closure_calls=lc_calls,
+                loop_closure_fused_head_fwd_launches=sum(c["fused_head_fwd_launches"] for c in lc_calls),
+                loop_closure_stage_seconds={k: v[0] for k, v in profiling.stage_totals().items()
+                                            if k.startswith("loop_closure")},
                 registered_half=rates[0] >= RELOC_SHARE, report=result["report"])
             require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
                     f"poses_final.txt is not {N_FRAMES} lines of 10 tokens")
@@ -762,6 +1081,9 @@ def main(argv=None) -> int:
             require(pipe_launches["bwd"] > 0, "the pipeline never launched fused_head_bwd")
             require(rates[0] >= PIPELINE_SHARE,
                     f"the pipeline registered {rates[0]:.1%} of the frames at confidence 500")
+            full = [c for c in lc_calls if c["ba_mode"] != "off" and c["skipped"] is None]
+            require(bool(full), f"no full loop-closure measurement ran unskipped: {lc_calls}")
+            require(all(c["fused_head_fwd_launches"] > 0 for c in lc_calls), "a loop-closure call never launched K1")
 
     if "report" in phases:
         with phase("report", {}):
@@ -773,6 +1095,7 @@ def main(argv=None) -> int:
             fwd = map_launches["fwd"] if map_launches else 0
             bwd = map_launches["bwd"] if map_launches else 0
             pipe_fwd = pipe_launches["fwd"] if pipe_launches else 0
+            pipe_lc = pipe_launches["loop_closure"] if pipe_launches else None
             pipe_bwd = pipe_launches["bwd"] if pipe_launches else 0
             emit(kernels=[{
                 "name": "fused_head_fwd",
@@ -780,9 +1103,13 @@ def main(argv=None) -> int:
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:108",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-                "launches": (launches or 0) + fwd + pipe_fwd,
+                "launches": (launches or 0) + fwd + (lc_launches or 0) + pipe_fwd,
                 "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None,
-                                     "pipeline": pipe_fwd if pipe_launches else None},
+                                     "loopclose": lc_launches, "pipeline": pipe_fwd if pipe_launches else None,
+                                     "pipeline_loop_closure": pipe_lc},
+                # [B, L] of each loop-closure launch, recorded where it was made
+                "loop_closure_shapes": {"loopclose": lc_shapes,
+                                        "pipeline": pipe_launches["loop_closure_shapes"] if pipe_launches else None},
                 **pick(k1_reg, *fields),
                 "ms": k1_reg.get("kernel_ms"),
                 "shape": pick(k1_reg, "B", "L"),
@@ -801,6 +1128,7 @@ def main(argv=None) -> int:
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
                 "launches": bwd + pipe_bwd,
                 "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None,
+                                     "loopclose": 0 if lc_launches is not None else None,
                                      "pipeline": pipe_bwd if pipe_launches else None},
                 **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),
                 "ms": k2_map.get("kernel_ms"),

@@ -22,6 +22,7 @@ def test_default_runs_every_phase():
     ("report, mapping", ["device", "mapping", "report"]),
     ("device", ["device"]),
     ("report,pipeline,profile", ["device", "profile", "pipeline", "report"]),
+    ("pipeline,loopclose,mapping", ["device", "mapping", "loopclose", "pipeline"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -76,3 +77,45 @@ def test_pipeline_phase_after_profile_before_report():
     assert chip_smoke.PIPELINE_OVERRIDES == {"learning_rate_warmup_iterations": 200}
     # the reference registers 30% at these budgets, so the floor sits under it
     assert chip_smoke.PIPELINE_SHARE == 0.25 < chip_smoke.RELOC_SHARE
+
+
+def test_loopclose_phase_after_mapping_before_profile():
+    """Phase loopclose runs after mapping (whose fixed-pose map it uses) and
+    before profile, and holds the card against the CPU on 16 frames: on
+    exact maps every pairwise fit and every frame within 1e-3 of the scene
+    diagonal and 0.05 deg, scales within 1e-3; on learned maps the same
+    edge count."""
+    phases = list(chip_smoke.PHASES)
+    assert phases.index("mapping") + 1 == phases.index("loopclose") == phases.index("profile") - 1
+    assert chip_smoke.parse_phases(["--phases", "loopclose"]) == ["device", "loopclose"]
+    assert chip_smoke.LOOPCLOSE_CPU_FRAMES == 16
+    assert (chip_smoke.LOOPCLOSE_TOL_DIAG, chip_smoke.LOOPCLOSE_TOL_DEG, chip_smoke.LOOPCLOSE_TOL_SCALE) == (
+        1e-3, 0.05, 1e-3)
+    # the map trained when phase mapping did not run: the fixed-pose recipe, cut
+    assert chip_smoke.LOOPCLOSE_MAP[: len(chip_smoke.MAPPING_SCHEDULE)] == chip_smoke.MAPPING_SCHEDULE
+    assert "--pose_refinement" not in chip_smoke.LOOPCLOSE_MAP
+
+
+def test_core_with_fits_reads_every_selected_pair():
+    """Phase loopclose's comparison on the CPU alone: the fits read off
+    loop_close_core's own calls cover every selected pair (each surviving
+    edge among them), and a run against itself differs by nothing."""
+    import numpy as np
+    import torch
+
+    from acezero_tpu_torch.reconstruct import loopclose as lc
+
+    maps, feats, w2c, focals, hw = chip_smoke.drifted_chesslike(np, 8, 16)
+    assert maps.shape == (8, 30, 40, 3) and feats.shape == (8, 30, 40, 96) and hw == (240, 320)
+    args = (torch.from_numpy(maps), torch.from_numpy(feats), torch.ones(maps.shape[:3], dtype=torch.bool), w2c,
+            np.full(8, 2000.0), focals, hw, 500.0)
+    runs = [chip_smoke.core_with_fits(np, lc, *args) for _ in range(2)]
+    s, R, t, diag, fits = runs[0]
+    assert "skipped" not in diag and len(fits) >= diag["edges"] >= 8
+    assert {(int(i), int(j)) for i, j in diag["ba_data"]["pairs"]} <= set(fits)
+    assert all(R_e.shape == (3, 3) and t_e.shape == (3,) and n > 0 for R_e, t_e, n in fits.values())
+    assert (lc.pairwise_sim3.__name__, lc.select_pairs.__name__) == ("pairwise_sim3", "select_pairs")  # restored
+    d = chip_smoke.card_vs_cpu(np, *runs)
+    assert d["pairs_equal"] and d["edges_card"] == d["edges_cpu"] == diag["edges"]
+    assert d["edge_fits"]["trans"]["max"] == d["frame_corrections"]["trans"]["max"] == 0.0
+    assert d["edge_fits"]["inliers_equal"] == 1.0 and d["frame_corrections"]["scale_max"] == 0.0

@@ -8,12 +8,18 @@ run them on the machine with the card:
 may not have.)
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from acezero_tpu_torch.ops import fused_head as fh
 from acezero_tpu_torch.utils.precision import no_tf32
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -101,8 +107,6 @@ def test_mini_reconstruction_loop_on_the_card(cuda, tmp_path):
     budgets) on 10 chesslike_a frames with their depth files at a 120-pixel
     short side: the same artifacts as on the CPU, a 10-line poses_final.txt,
     and both kernels launched by the run."""
-    from pathlib import Path
-
     from acezero_tpu_torch.cli import ace_zero_cli
     from acezero_tpu_torch.io.pose_files import read_pose_file
 
@@ -125,3 +129,29 @@ def test_mini_reconstruction_loop_on_the_card(cuda, tmp_path):
     entries = read_pose_file(tmp_path / "poses_final.txt")
     assert len(entries) == 10 and all(np.isfinite(e.pose_w2c).all() for e in entries)
     assert result["iterations"] == 1 and all(0.0 <= r <= 1.0 for r in result["rate_history"])
+
+
+@pytest.mark.parametrize("frames,stride", [(12, 16), (16, 8)])
+def test_loop_close_core_card_matches_cpu(cuda, frames, stride):
+    """The port's loop_close_core on the card against itself on the CPU, on
+    drifted exact maps of chesslike_a frames (30 x 40 and 60 x 80 cells,
+    chip_smoke.drifted_chesslike): the same selected pairs and surviving
+    edges, and every pairwise fit and every frame's correction within 1e-3
+    of the scene diagonal and 0.05 deg, scales within 1e-3. The card's
+    cuSOLVER eigensolves and cuBLAS products (TF32 off) sum in another order
+    than the CPU's."""
+    from acezero_tpu_torch.reconstruct import loopclose as lc
+
+    maps, feats, w2c, focals, hw = chip_smoke.drifted_chesslike(np, frames, stride)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = chip_smoke.core_with_fits(
+            np, lc, torch.from_numpy(maps).to(dev), torch.from_numpy(feats).to(dev),
+            torch.ones(maps.shape[:3], dtype=torch.bool, device=dev), w2c, np.full(frames, 2000.0), focals, hw, 500.0)
+    assert "skipped" not in out["cuda"][3] and "skipped" not in out["cpu"][3]
+    d = chip_smoke.card_vs_cpu(np, out["cuda"], out["cpu"])
+    assert d["pairs_equal"] and d["edges_card"] == d["edges_cpu"] >= 2 * frames
+    tol = 1e-3 * d["scene_diag"]
+    assert d["edge_fits"]["trans"]["max"] <= tol and d["edge_fits"]["rot_deg"]["max"] <= 0.05
+    assert d["frame_corrections"]["trans"]["max"] <= tol and d["frame_corrections"]["rot_deg"]["max"] <= 0.05
+    assert d["frame_corrections"]["scale_max"] <= 1e-3

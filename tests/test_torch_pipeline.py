@@ -1,14 +1,17 @@
-"""The port's reconstruction loop (AceZeroPipeline, loop closure off)
-against acezero_tpu's.
+"""The port's reconstruction loop (AceZeroPipeline) against acezero_tpu's.
 
 (a) the config's fields and defaults; (b) control flow: both pipelines run
-with MappingTrainer and register_frames replaced by fakes that replay a
-script of registration rates, and their call logs and artifact names must
-be equal; (c) the mini loop of tests/test_pipeline_e2e.py:32 through the
-port's CLI on the CPU and through the JAX pipeline on one device; (d, slow)
-that loop's spread over base seeds; (e) the branches this slice leaves out
-raise at construction. The parallel seed path (early seed selection,
-register_frames_multi) runs for real at a tiny size.
+with MappingTrainer, register_frames and loop_close_entries replaced by
+fakes that replay a script of registration rates and loop-closure
+outcomes, and their call logs, artifact names and poses_final.txt must be
+equal, with loop closure off and on (no drift, a drift-free probe and its
+memo, drift drained by a cycle, drift not drained with the final graph
+choice); (c) the mini loop of tests/test_pipeline_e2e.py:32 (loop closure
+off, as there) through the port's CLI on the CPU and through the JAX
+pipeline on one device; (d, slow) that loop's spread over base seeds; (e)
+the branches the port leaves out raise at construction. The parallel seed
+path (early seed selection, register_frames_multi) runs for real at a tiny
+size.
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import pytest
 import torch
 from PIL import Image
 
+import acezero_tpu.reconstruct.loopclose as jlc
 import acezero_tpu.reconstruct.pipeline as jpipe
 from acezero_tpu.evalpose import evaluate_poses as j_evaluate
 from acezero_tpu.io.pose_files import load_pose_files_glob
@@ -113,13 +117,31 @@ def test_cli_flags_match_jax():
 
 
 class _Script:
-    """The fakes of one run: a trainer and a registration driver that
-    replay `rates` (one per registration call) and log every call."""
+    """The fakes of one run: a trainer, a registration driver that replays
+    `rates` (one per registration call) and a loop closure that replays
+    `drift` (one outcome per call: True measures drift and moves every
+    pose by a 1000-unit marker), logging every call."""
 
-    def __init__(self, rates):
+    def __init__(self, rates, drift=()):
         self.rates = list(rates)
+        self.drift = list(drift)
         self.calls = []
         self.heads = 0
+
+    def loop_close(self, encoder_params, head_params, head_cfg, scene, entries, conf_threshold,
+                   focal_override_orig=None, cfg=None, max_frames=256, **_kw):
+        self.calls.append({
+            "call": "loop_close", "head": head_params["id"], "frames": len(entries), "confidence": conf_threshold,
+            "focal_override": focal_override_orig, "ba": None if cfg is None else cfg.ba, "max_frames": max_frames,
+        })
+        if not self.drift.pop(0):
+            return entries, {"edges": 12, "median_corr_t": 0.001, "median_corr_rot_deg": 0.01, "scene_diag": 1.0}
+        moved = []
+        for e in entries:
+            pose = e.pose_w2c.copy()
+            pose[0, 3] += 1000.0
+            moved.append(dataclasses.replace(e, pose_w2c=pose))
+        return moved, {"edges": 12, "median_corr_t": 1.0, "median_corr_rot_deg": 2.0, "scene_diag": 1.0}
 
     def trainer(self, scene, encoder_params, head_cfg, cfg, buffer_cfg, head_params=None, base_seed=0,
                 **_kw):
@@ -169,8 +191,10 @@ class _FakeIO:
         return None, {"id": 0}
 
 
+LC = {"loop_closure": True, "iterations_max": 10}
 CASES = {
-    # rates: seed fastcheck, seed map on all frames, then one per round
+    # rates: seed fastcheck, seed map on all frames, then one per round;
+    # with loop closure on, one outcome per loop_close_entries call
     "registration_threshold": ({"iterations_max": 10}, [0.3, 0.3, 0.995, 0.9]),
     "relative_threshold": ({"iterations_max": 10}, [0.3, 0.3, 0.5, 0.505, 0.6]),
     "iterations_max": ({"iterations_max": 4}, [0.1, 0.1, 0.3, 0.5, 0.7]),
@@ -178,35 +202,64 @@ CASES = {
     "no_final_refit": ({"iterations_max": 10, "final_refit": False}, [0.3, 0.3, 0.995, 0.9]),
     "refit_cycles": ({"iterations_max": 10, "final_refit_cycles": 2}, [0.3, 0.3, 0.995, 0.9, 0.95]),
     "seed_network": ({"iterations_max": 10, "seed_network": "seed.pt"}, [0.4, 0.995, 0.9]),
+    # measured before the refit and after it: no drift either time
+    "lc_no_drift": (LC, [0.3, 0.3, 0.995, 0.9], [False, False]),
+    # a drift-free probe on 2 frames; the refit keeps registration, so the
+    # probe memo skips the measurement after it
+    "lc_probe_memo": ({**LC, "loop_closure_probe_frames": 2}, [0.3, 0.3, 0.995, 0.995], [False]),
+    # drift before the refit (poses frozen), drift again (one adaptive cycle),
+    # then none: converged, registration poses kept
+    "lc_drift_drained": (LC, [0.3, 0.3, 0.995, 0.9, 0.95], [True, True, False]),
+    # drift never drained: the cycle cap ends the cycles and the final
+    # measurement's corrected graph becomes poses_final.txt
+    "lc_final_graph": ({**LC, "adaptive_refit_max_cycles": 1, "loopclose_final_graph": True},
+                       [0.3, 0.3, 0.995, 0.9, 0.95], [True, True, True]),
 }
 
 
-def _flow(module, pipeline_cls, config_cls, kw, rates, monkeypatch, folder, **init):
-    script = _Script(rates)
+def _flow(module, lc_module, pipeline_cls, config_cls, kw, rates, drift, monkeypatch, folder, **init):
+    script = _Script(rates, drift)
     monkeypatch.setattr(module, "MappingTrainer", script.trainer)
     monkeypatch.setattr(module, "register_frames", script.register)
     monkeypatch.setattr(module, "torch_io", _FakeIO)
+    monkeypatch.setattr(lc_module, "loop_close_entries", script.loop_close)
     cfg = config_cls(**{**kw, "results_folder": folder})
     result = pipeline_cls(cfg, encoder_params={}, **init).run()
     assert not script.rates, "the script has rates left over"
+    assert not script.drift, "the script has loop-closure outcomes left over"
     return script.calls, sorted(p.name for p in folder.iterdir()), result
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_control_flow_matches_jax(case, scene_dir, tmp_path, monkeypatch):
-    over, rates = CASES[case]
+    over, rates, *drift = CASES[case]
+    drift = drift[0] if drift else []
     kw = {**_scene_kw(scene_dir, None), "try_seeds": 1, "loop_closure": False, "seed_iterations": 321,
           "iterations": 654, "refit_iterations": 987, "final_refit_posewait": 55, "cooldown_iterations": 40,
           "learning_rate_warmup_iterations": 30, **over}
     if "seed_network" in over:
         kw["seed_network"] = tmp_path / "seed.pt"
-    calls_j, files_j, res_j = _flow(jpipe, JPipeline, JConfig, {**kw, **JAX_ONLY}, rates, monkeypatch,
+    calls_j, files_j, res_j = _flow(jpipe, jlc, JPipeline, JConfig, {**kw, **JAX_ONLY}, rates, drift, monkeypatch,
                                     tmp_path / "j")
-    calls_t, files_t, res_t = _flow(tpipe, AceZeroPipeline, AceZeroConfig, kw, rates, monkeypatch, tmp_path / "t",
-                                    device="cpu")
+    calls_t, files_t, res_t = _flow(tpipe, tpipe, AceZeroPipeline, AceZeroConfig, kw, rates, drift, monkeypatch,
+                                    tmp_path / "t", device="cpu")
     assert calls_t == calls_j
     assert files_t == files_j
     assert "poses_final.txt" in files_t
+    lc_calls = [c for c in calls_t if c["call"] == "loop_close"]
+    assert len(lc_calls) == len(drift)
+    refits = [c["pose_wait"] for c in calls_t if c["call"] == "train" and c["loss"] == "dyntanh"]
+    final = (tmp_path / "t" / "poses_final.txt").read_text()
+    if case == "lc_probe_memo":
+        assert lc_calls[0]["ba"] == "off" and lc_calls[0]["max_frames"] == 2
+    if case == "lc_drift_drained":
+        assert refits == [987, 987] and res_t["iterations"] == 3  # both refits adopt the corrected poses
+    if case == "lc_final_graph":
+        assert "poses_iteration3_loopclosed.txt" in files_t
+        assert all(float(ln.split()[5]) == 1000.0 for ln in final.splitlines())
+    else:
+        assert not any(f.endswith("_loopclosed.txt") for f in files_t)
+        assert all(float(ln.split()[5]) == 0.0 for ln in final.splitlines())
     for key in ("iterations", "registration_rates", "rate_history", "focal_estimate", "report"):
         if key == "report":
             assert res_t[key].split("\n")[1].split()[1:] == res_j[key].split("\n")[1].split()[1:]
@@ -220,7 +273,7 @@ def test_mapping_scene_fallback_and_drift_gate(scene_dir, tmp_path):
     registered poses and focals, falls back to the most confident tenth
     when none is confident, and shares the root canvases; _drift_detected
     is the JAX gate."""
-    kw = {**_scene_kw(scene_dir, tmp_path / "t"), "loop_closure": False}
+    kw = _scene_kw(scene_dir, tmp_path / "t")
     pipe = AceZeroPipeline(AceZeroConfig(**kw), device="cpu", encoder_params={})
     files = pipe.scene.rgb_files
     poses = [np.diag([1.0, 1.0, 1.0, 1.0]) + np.eye(4, k=3) * i for i in range(N)]
@@ -334,7 +387,6 @@ def test_mini_loop_spread(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"loop_closure": True}, "loop closure"),
     ({"depth_files": None}, "seed-depth"),
     ({"calibration_files": "calib/*.txt"}, "calibration_files"),
     ({"render_visualization": True}, "render_visualization"),
@@ -342,7 +394,7 @@ def test_mini_loop_spread(scene_dir, tmp_path):
     ({"training_buffer_cpu": True}, "training_buffer_cpu"),
 ])
 def test_left_out_branches_raise_at_construction(over, what, scene_dir, tmp_path):
-    kw = {**_scene_kw(scene_dir, tmp_path / "out"), "loop_closure": False, **over}
+    kw = {**_scene_kw(scene_dir, tmp_path / "out"), **over}
     with pytest.raises(NotImplementedError, match=what):
         AceZeroPipeline(AceZeroConfig(**kw), device="cpu", encoder_params={})
     assert not (tmp_path / "out").exists()
@@ -355,7 +407,7 @@ def test_cli_without_cuda_raises(scene_dir, tmp_path, monkeypatch):
     path, focal = scene_dir
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ace_zero_cli.main([str(path / "*.png"), str(tmp_path / "out"), "--depth_files", str(path / "*_depth.npy"),
-                           "--use_external_focal_length", str(focal), "--loop_closure", "false"])
+                           "--use_external_focal_length", str(focal)])
     assert not (tmp_path / "out").exists()
 
 
