@@ -9,8 +9,8 @@ checkpoint plus `poses_<name>_preliminary.txt` beside it:
         --pose_files '<scene>/*_pose.txt' --use_external_focal_length 520 \
         --encoder_path weights/tpu_encoder_v6.pt
 
-`--training_buffer_cpu true` raises until the host-spill buffer is ported;
-the visualisation flags are accepted and ignored.
+`--training_buffer_cpu true` keeps the training buffer in host memory
+(training/trainer.py); the visualisation flags are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -139,10 +139,6 @@ def main(argv: list[str] | None = None) -> dict:
             "Either use_heuristic_focal_length or use_external_focal_length "
             "or use_ace_pose_file has to be set."
         )
-    if args.training_buffer_cpu:
-        raise NotImplementedError(
-            "--training_buffer_cpu: the host-spill training buffer is not ported yet (ROADMAP.md)")
-
     scene = load_scene(
         args.rgb_files,
         pose_files=args.pose_files,

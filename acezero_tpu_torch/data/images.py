@@ -1,28 +1,49 @@
 """Host-side image decode onto static grayscale canvases.
 
 Counterpart of acezero_tpu/data/images.py, without PIL: PNG files decode
-with `zlib` and numpy (8-bit gray, gray+alpha, RGB and RGBA, not
-interlaced, all five row filters; anything else raises). Each image is
-turned to ITU-R 601 luma, resized so its short side matches
+with `zlib` and numpy (gray, gray+alpha, RGB and RGBA at bit depth 8 or
+16, not interlaced, all five row filters; anything else raises). Each
+image is turned to ITU-R 601 luma, resized so its short side matches
 `short_size`, and centred on a canvas shared by the whole set, rounded up
 to a multiple of 8 — the same arithmetic as native/canvas.cpp: an area
 average when shrinking, bilinear when enlarging, float32 luma, +0.5 and
-truncation to uint8.
+truncation to uint8. A 16-bit image first becomes what PIL makes of it
+(`pil_uint8`).
+
+The colour paths that the JAX package runs through PIL are reproduced
+exactly: `read_rgb` (`convert("RGB")`), `pil_luma_u8` (`convert("L")`,
+Pillow's integer luma) and `pil_resize_bilinear` (`resize(BILINEAR)`).
+
+`decode_to_canvas(cache_dir=...)` keeps decoded canvases in a cache keyed
+by the files' path, size and mtime_ns and the decode parameters, as the JAX
+package does, with three differences on purpose: the directory must be
+owned by the current user and writable by nobody else (it is created with
+mode 0700; otherwise the cache is not used), and its size is bounded by
+`CACHE_MAX_BYTES`, the least recently used entries evicted first.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as _futures
+import hashlib
+import logging
 import math
+import os
+import shutil
+import stat
 import struct
+import tempfile
 import zlib
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
 # Grayscale normalization statistics (reference dataset.py:150-153).
 GRAY_MEAN = 0.4
 GRAY_STD = 0.25
+
+_logger = logging.getLogger(__name__)
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -87,8 +108,9 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int, path) -> np.ndarray:
 
 
 def read_png(path) -> np.ndarray:
-    """Decode an 8-bit PNG: (h, w) for gray, (h, w, 2|3|4) for gray+alpha,
-    RGB and RGBA, as uint8."""
+    """Decode a PNG: (h, w) for gray, (h, w, 2|3|4) for gray+alpha, RGB and
+    RGBA; uint8 at bit depth 8, uint16 at 16 (big-endian samples, filtered
+    byte by byte with 2 bytes a sample)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_PNG_SIGNATURE):
@@ -110,15 +132,103 @@ def read_png(path) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: PNG without IHDR or IDAT")
     w, h, depth, ctype, _compression, _filter, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}); supported: 8-bit gray, gray+alpha, RGB, RGBA, "
+            f"interlace {interlace}); supported: 8- and 16-bit gray, gray+alpha, RGB, RGBA, "
             "not interlaced"
         )
-    bpp = _CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp, path)
-    return img[..., 0] if bpp == 1 else img
+    channels = _CHANNELS[ctype]
+    nbytes = depth // 8
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels * nbytes, path)
+    if nbytes == 2:
+        pairs = img.reshape(h, w, channels, 2).astype(np.uint16)
+        img = (pairs[..., 0] << 8) | pairs[..., 1]
+    return img[..., 0] if channels == 1 else img
+
+
+def pil_uint8(img: np.ndarray) -> np.ndarray:
+    """The 8-bit image PIL works with for a decoded PNG: 16-bit gray opens
+    as mode I;16 and converts to 8 bits by clipping at 255; 16-bit colour
+    opens as 8-bit RGB(A) from each sample's high byte."""
+    if img.dtype == np.uint8:
+        return img
+    if img.ndim == 2:
+        return np.minimum(img, 255).astype(np.uint8)
+    return (img >> 8).astype(np.uint8)
+
+
+def read_rgb(path) -> np.ndarray:
+    """(h, w, 3) uint8, as PIL's `Image.open(path).convert("RGB")`: gray is
+    replicated, gray+alpha and RGBA drop alpha (no compositing)."""
+    img = pil_uint8(read_png(path))
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] == 2:
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def pil_luma_u8(img: np.ndarray) -> np.ndarray:
+    """PIL's `convert("L")` of an 8-bit image: Pillow's integer ITU-R 601
+    luma (R 19595 + G 38470 + B 7471 + 0x8000) >> 16 for RGB(A), the gray
+    channel for gray(+alpha)."""
+    img = pil_uint8(np.asarray(img))
+    if img.ndim == 2:
+        return img
+    if img.shape[-1] == 2:
+        return np.ascontiguousarray(img[..., 0])
+    r, g, b = (img[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+_PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point coefficients for 8-bit images
+
+
+def _pil_bilinear_coeffs(n_in: int, n_out: int):
+    """Pillow's `precompute_coeffs` and `normalize_coeffs_8bpc` for the
+    triangle filter: (first tap (n_out,), integer weights (n_out, ksize)).
+    The support widens by the shrink factor; weights are normalised in
+    double, summed tap by tap as Pillow does, then rounded to fixed point."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), n_in) - xmin
+    taps = np.arange(ksize)
+    w = 1.0 - np.abs((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where((w > 0) & (taps[None, :] < xmax[:, None]), w, 0.0)
+    ww = np.zeros(n_out)
+    for x in range(ksize):
+        ww = ww + w[:, x]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    k = np.where(w < 0, np.trunc(-0.5 + w * (1 << _PRECISION_BITS)), np.trunc(0.5 + w * (1 << _PRECISION_BITS)))
+    return xmin, k.astype(np.int64)
+
+
+def _pil_resample_axis0(img: np.ndarray, n_out: int) -> np.ndarray:
+    xmin, k = _pil_bilinear_coeffs(img.shape[0], n_out)
+    src = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None, :], img.shape[0] - 1)  # zero weight past the end
+    acc = np.full((n_out,) + img.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for x in range(k.shape[1]):
+        acc += img[src[:, x]].astype(np.int64) * k[:, x].reshape((-1,) + (1,) * (img.ndim - 1))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """PIL's `Image.fromarray(img).resize((out_w, out_h), BILINEAR)` of an
+    8-bit (h, w) or (h, w, c) image: a horizontal pass into 8-bit rows, then
+    a vertical pass, each a triangle filter with fixed-point weights; the
+    same size is a copy."""
+    h, w = img.shape[:2]
+    out = np.asarray(img, np.uint8)
+    if w != out_w:
+        out = _pil_resample_axis0(out.swapaxes(0, 1), out_w).swapaxes(0, 1)
+    if h != out_h:
+        out = _pil_resample_axis0(out, out_h)
+    return np.ascontiguousarray(out)
 
 
 def _luma(img: np.ndarray) -> np.ndarray:
@@ -151,7 +261,7 @@ def _bilinear_taps(n_in: int, n_out: int, scale: np.float32):
 
 def gray_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """Luma, resized to (out_h, out_w), rounded to uint8."""
-    gray = _luma(img)
+    gray = _luma(pil_uint8(img))
     in_h, in_w = gray.shape
     sy = np.float32(in_h) / np.float32(out_h)
     sx = np.float32(in_w) / np.float32(out_w)
@@ -203,14 +313,112 @@ class DecodedImages:
         return self.root[self.root_indices if idx is None else self.root_indices[idx]]
 
 
+CACHE_MAX_BYTES = 4 << 30  # the decode cache's bound: 4 GiB, least recently used entries evicted first
+_CACHE_ARRAYS = ("canvases", "sizes", "orig_sizes", "scale_factors")
+
+
+def _cache_key(paths: list[str], short_size: int, canvas_hw) -> str:
+    """The JAX package's content key: each file's path, size and mtime_ns,
+    and the decode parameters; no image is read."""
+    h = hashlib.sha1()
+    h.update(f"{short_size}|{canvas_hw}|v1".encode())
+    for p in paths:
+        st = os.stat(p)
+        h.update(f"{p}|{st.st_size}|{st.st_mtime_ns}\n".encode())
+    return h.hexdigest()
+
+
+def _trusted_cache_dir(cache_dir) -> Path | None:
+    """The cache directory, created with mode 0700, when it is a real
+    directory owned by the current user and not group- or world-writable;
+    None (and a warning) otherwise, and the caller decodes without it."""
+    d = Path(cache_dir)
+    try:
+        d.mkdir(mode=0o700, parents=True, exist_ok=True)
+        st = os.lstat(d)
+    except OSError as exc:
+        _logger.warning("Decode cache %s unusable (%s); decoding without it.", d, exc)
+        return None
+    if not stat.S_ISDIR(st.st_mode) or st.st_uid != os.getuid() or st.st_mode & 0o022:
+        _logger.warning("Decode cache %s is not a directory owned by this user and writable only by it; "
+                        "decoding without it.", d)
+        return None
+    return d
+
+
+def _entry_bytes(entry: Path) -> int:
+    return sum(f.stat().st_size for f in entry.iterdir())
+
+
+def _cache_load(d: Path, key: str, n: int) -> "DecodedImages | None":
+    entry = d / key
+    if not (entry / "ok").exists():
+        return None
+    try:
+        # copy-on-write maps: the arrays are writable and the files stay as they are
+        arrays = {k: np.load(entry / f"{k}.npy", mmap_mode="c") for k in _CACHE_ARRAYS}
+        os.utime(entry)  # most recently used
+    except (OSError, ValueError):
+        return None  # a damaged entry decodes anew
+    if len(arrays["canvases"]) != n:
+        return None
+    return DecodedImages(**arrays)
+
+
+def _cache_store(d: Path, key: str, imgs: "DecodedImages") -> None:
+    """Publish an entry atomically (written under a temporary name, then
+    renamed), then evict the least recently used entries while the cache is
+    over CACHE_MAX_BYTES. An entry larger than the bound is not stored."""
+    max_bytes = CACHE_MAX_BYTES
+    size = sum(getattr(imgs, k).nbytes for k in _CACHE_ARRAYS)
+    if size > max_bytes:
+        return
+    tmp = Path(tempfile.mkdtemp(dir=d, prefix=f".{key[:12]}_"))
+    try:
+        for k in _CACHE_ARRAYS:
+            np.save(tmp / f"{k}.npy", getattr(imgs, k))
+        (tmp / "ok").touch()
+        os.replace(tmp, d / key)
+    except OSError:
+        shutil.rmtree(tmp, ignore_errors=True)  # e.g. another process published the same key first
+        return
+    entries = []
+    for e in d.iterdir():
+        if not e.name.startswith(".") and (e / "ok").exists():
+            entries.append((e.stat().st_mtime_ns, e, _entry_bytes(e)))
+    total = sum(b for _, _, b in entries)
+    for _, e, b in sorted(entries, key=lambda t: t[0]):
+        if total <= max_bytes:
+            break
+        if e.name != key:
+            shutil.rmtree(e, ignore_errors=True)
+            total -= b
+
+
 def decode_to_canvas(
     paths: list[str],
     short_size: int = 480,
     canvas_hw: tuple[int, int] | None = None,
     num_workers: int = 16,
+    cache_dir=None,
 ) -> DecodedImages:
     """Decode all images and centre them on one shared canvas (by default the
-    largest resized extent, rounded up to a multiple of 8)."""
+    largest resized extent, rounded up to a multiple of 8). With `cache_dir`
+    the canvases are read from, or written to, the decode cache (module
+    note); a cache that cannot be trusted or used is skipped."""
+    d = key = None
+    if cache_dir is not None:
+        d = _trusted_cache_dir(cache_dir)
+        if d is not None:
+            try:
+                key = _cache_key(paths, short_size, canvas_hw)
+            except OSError:
+                d = None
+    if d is not None:
+        cached = _cache_load(d, key, len(paths))
+        if cached is not None:
+            return cached
+
     with _futures.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
         raws = list(ex.map(read_png, paths))
     orig_sizes = np.array([r.shape[:2] for r in raws], np.int32).reshape(-1, 2)
@@ -233,7 +441,10 @@ def decode_to_canvas(
 
     with _futures.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
         list(ex.map(place, range(len(paths))))
-    return DecodedImages(canvases=canvases, sizes=sizes, orig_sizes=orig_sizes, scale_factors=scales)
+    out = DecodedImages(canvases=canvases, sizes=sizes, orig_sizes=orig_sizes, scale_factors=scales)
+    if d is not None:
+        _cache_store(d, key, out)
+    return out
 
 
 def heuristic_focal_length(orig_h: int, orig_w: int) -> float:

@@ -6,9 +6,11 @@ Counterpart of acezero_tpu/data/scene.py for these data definitions:
     names the frames and carries their poses and focal lengths);
   - a single-image pose seed (identity pose);
 with the focal length from an external value, the heuristic (70% of the
-original image diagonal), or the ACE pose file, in that order. Focals are
-kept both in original pixels and in resized canvas pixels. Per-frame
-calibration files are not ported yet.
+original image diagonal), or per frame from the ACE pose file or from
+calibration files (a scalar or a 3x3 K per frame, matched to the RGB files
+in sorted order), in that order. Focals are kept both in original pixels
+and in resized canvas pixels. `decode_cache_dir` passes the decode cache
+(data/images.py) to the decode.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from acezero_tpu_torch.data.images import DecodedImages, decode_to_canvas, heuri
 from acezero_tpu_torch.io.pose_files import (
     get_files_from_glob,
     is_pose_valid,
+    load_focal_length,
     load_pose_files_glob,
     read_pose_file,
 )
@@ -109,8 +112,10 @@ def load_scene(
     image_short_size: int = 480,
     use_heuristic_focal_length: bool = False,
     external_focal_length: float | None = None,
+    calibration_files: str | None = None,
     canvas_hw: tuple[int, int] | None = None,
     num_workers: int = 16,
+    decode_cache_dir=None,
 ) -> SceneData:
     """Load a scene following the reference's data-definition precedence:
     an ACE pose file (entries above the confidence threshold) over the RGB
@@ -141,6 +146,11 @@ def load_scene(
         else:
             poses = [np.eye(4) for _ in files]
             pose_valid = np.zeros(len(files), bool)
+        if calibration_files is not None:
+            calib = get_files_from_glob(calibration_files)
+            if len(calib) != len(files):
+                raise ValueError(f"{len(files)} rgb files but {len(calib)} calibration files for {calibration_files}")
+            focal_per_file = {f: load_focal_length(c) for f, c in zip(files, calib)}
 
     if pose_seed > -1:
         seed_index = int(pose_seed * len(files))
@@ -150,7 +160,7 @@ def load_scene(
         pose_valid = np.ones(1, bool)
 
     images = decode_to_canvas(files, short_size=image_short_size, canvas_hw=canvas_hw,
-                              num_workers=num_workers)
+                              num_workers=num_workers, cache_dir=decode_cache_dir)
     n = len(files)
     focals = np.zeros(n, np.float32)
     focals_orig = np.zeros(n, np.float32)

@@ -6,8 +6,10 @@ whose architecture is inferred from the keys, as the reference does: the
 extra-block count from `<i>c0.weight`, homogeneous output from fc3's width.
 `save_head` writes the same keys (and the scale buffers) as the JAX
 package's writer, fp16 by default, so either package reads the other's
-file. `params_from_jax` converts the JAX package's numpy parameter trees
-(HWIO convs, (cin, cout) dense layers) into the port's layout.
+file. Depth heads (`weights/tpu_depth_v*.pt`, `d_conv1..4`) are conv state
+dicts like the encoders. `params_from_jax` converts the JAX package's numpy
+parameter trees (HWIO convs, (cin, cout) dense layers) into the port's
+layout.
 """
 
 from __future__ import annotations
@@ -84,6 +86,15 @@ def load_encoder(path: str | Path, device="cpu") -> dict:
     return import_encoder_state_dict(load_state_dict(path), device)
 
 
+def load_depth_head(path: str | Path, device="cpu") -> dict:
+    """A seed-depth head {d_conv1..4: {"w": OIHW, "b"}} in f32."""
+    params = import_encoder_state_dict(load_state_dict(path), device)
+    missing = [k for k in ("d_conv1", "d_conv2", "d_conv3", "d_conv4") if k not in params]
+    if missing:
+        raise ValueError(f"{path}: not a depth head (no {', '.join(missing)})")
+    return params
+
+
 def load_head(path: str | Path, device="cpu") -> tuple[HeadConfig, dict]:
     return import_head_state_dict(load_state_dict(path), device)
 
@@ -125,22 +136,21 @@ def save_head(path: str | Path, params: dict, cfg: HeadConfig, half: bool = True
     torch.save(export_head_state_dict(params, cfg, half=half), str(path))
 
 
-def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu", posenet_np: dict | None = None):
+def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu", posenet_np: dict | None = None,
+                    depth_np: dict | None = None):
     """The JAX package's parameter trees (numpy arrays) in the port's layout:
     HWIO convs become OIHW, dense layers stay (cin, cout). Any tree may be
-    None. Returns (encoder_params, head_params), or (encoder_params,
-    head_params, posenet_params) when `posenet_np` is given."""
+    None. Returns (encoder_params, head_params), then posenet_params when
+    `posenet_np` is given, then depth-head params when `depth_np` is given."""
 
     def t(a):
         return torch.from_numpy(np.array(a, np.float32))
 
-    enc = None
-    if encoder_np is not None:
-        enc = {
-            name: {"w": t(np.asarray(p["w"]).transpose(3, 2, 0, 1)), "b": t(p["b"])}
-            for name, p in encoder_np.items()
-        }
-        enc = _to(enc, device)
+    def convs(tree):
+        return _to({name: {"w": t(np.asarray(p["w"]).transpose(3, 2, 0, 1)), "b": t(p["b"])}
+                    for name, p in tree.items()}, device)
+
+    enc = None if encoder_np is None else convs(encoder_np)
     head = None
     if head_np is not None:
         head = {"blocks": []}
@@ -154,7 +164,9 @@ def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu",
             else:
                 head[key] = {"w": t(p["w"]), "b": t(p["b"])}
         head = _to(head, device)
-    if posenet_np is None:
-        return enc, head
-    posenet = _to({k: {"w": t(p["w"]), "b": t(p["b"])} for k, p in posenet_np.items()}, device)
-    return enc, head, posenet
+    out = [enc, head]
+    if posenet_np is not None:
+        out.append(_to({k: {"w": t(p["w"]), "b": t(p["b"])} for k, p in posenet_np.items()}, device))
+    if depth_np is not None:
+        out.append(convs(depth_np))
+    return tuple(out)

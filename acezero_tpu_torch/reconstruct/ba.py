@@ -18,7 +18,10 @@ correspondences, camera poses only:
 
 Tracks are processed in chunks of `chunk` to bound memory, as the JAX
 package scans over them; the iterations are a Python loop that reads
-nothing back to the host until the end.
+nothing back to the host until the end. The normal equations accumulate
+through `_ordered_add`, whose sums do not depend on thread order, so a run
+gives the same bits every time on the card too (a scatter-add there is
+atomic adds).
 """
 
 from __future__ import annotations
@@ -56,6 +59,25 @@ def _rotlog(R: torch.Tensor) -> torch.Tensor:
     s = torch.where(theta > 1e-6, theta / torch.clamp(2.0 * torch.sin(theta), min=1e-12),
                     torch.full_like(theta, 0.5))
     return w * s[..., None]
+
+
+def _segments(keys: torch.Tensor):
+    """A plan for summing values by key in a fixed order: the stable sort
+    order of `keys`, the distinct keys and the length of each run."""
+    order = torch.argsort(keys, stable=True)
+    uniq, counts = torch.unique_consecutive(keys[order], return_counts=True)
+    return order, uniq, counts
+
+
+def _ordered_add(target: torch.Tensor, plan, values: torch.Tensor) -> None:
+    """target[key] += the sum of the values with that key (`plan` from
+    `_segments`), in place: each run is summed in its original order, one
+    thread a run (`torch.segment_reduce`), and the distinct keys are written
+    once each. So no sum depends on thread order, on the card as on the
+    CPU, and within one track chunk the order is a serial scatter-add's."""
+    order, uniq, counts = plan
+    sums = torch.segment_reduce(values.reshape(len(order), -1)[order], "sum", lengths=counts, axis=0)
+    target[uniq] += sums.reshape((-1,) + target.shape[1:])
 
 
 def tracks_from_pair_matches(
@@ -130,6 +152,10 @@ def pose_ba_core(
     okb = trk_ok & (trk_frame >= 0)
     T = fidx.shape[0]
     spans = [(c0, min(c0 + chunk, T)) for c0 in range(0, T, chunk)]
+    # block (o, p) of a track -> frame pair (f[o], f[p]); the frames of a
+    # chunk never change, so each chunk's summation plan is made once
+    plans = [(_segments((fidx[a:b, :, None] * n + fidx[a:b, None, :]).reshape(-1)),
+              _segments(fidx[a:b].reshape(-1))) for a, b in spans]
     eye3 = torch.eye(3, device=dev)
     h2 = huber_px * huber_px
     oi = torch.arange(O, device=dev)
@@ -180,7 +206,7 @@ def pose_ba_core(
         H = torch.zeros(n * n, 6, 6, device=dev)
         g = torch.zeros(n, 6, device=dev)
         wsum = rsum = cost = torch.zeros((), device=dev)
-        for a, b in spans:
+        for (a, b), (plan_H, plan_g) in zip(spans, plans):
             fc, uc, oc = fidx[a:b], trk_px[a:b], okb[a:b]
             Rc, f, pc, inv_z, res, r2, valid, tc = track_geometry(R, t, fc, uc, oc)
             zero = torch.zeros_like(inv_z)
@@ -205,9 +231,8 @@ def pose_ba_core(
             gd = (wJc.transpose(-1, -2) @ res[..., None])[..., 0] - (WS @ gX[:, None, :, None])[..., 0]
             Hx = -torch.einsum("coik,cpjk->copij", WS, W)  # (c, O, O, 6, 6)
             Hx[:, oi, oi] += Hd
-            # block (o, p) of a track -> frame pair (f[o], f[p])
-            H.index_add_(0, (fc[:, :, None] * n + fc[:, None, :]).reshape(-1), Hx.reshape(-1, 6, 6))
-            g.index_add_(0, fc.reshape(-1), gd.reshape(-1, 6))
+            _ordered_add(H, plan_H, Hx)
+            _ordered_add(g, plan_g, gd)
             wsum = wsum + w.sum()
             rsum = rsum + (w * r2).sum()
             cost = cost + robust(r2, valid)

@@ -22,8 +22,7 @@ class AceZeroConfig:
     rgb_files: str = ""
     results_folder: Path = Path("results")
     depth_files: str | None = None
-    # per-frame focal-length files (scalar or 3x3 K); not ported yet: the
-    # pipeline raises NotImplementedError at construction when it is set
+    # per-frame focal-length files (scalar or 3x3 K), in the frames' order
     calibration_files: str | None = None
 
     # --- main reconstruction loop (ace_zero.py:44-82) ---
@@ -53,7 +52,7 @@ class AceZeroConfig:
     seed_selection_min_frames: int = 200
     seed_network: Path | None = None
     warmstart: bool = True
-    # point-cloud export is not ported yet: True raises at construction
+    # pc_final.ply from the final map (export/point_cloud.py)
     export_point_cloud: bool = False
     dense_point_cloud: bool = False
 
@@ -85,7 +84,7 @@ class AceZeroConfig:
     repro_loss_soft_clamp: float = 50.0
     aug_rotation: float = 15.0
     aug_black_white: float = 0.1  # brightness/contrast jitter half-range
-    # the host-spill buffer is not ported yet: True raises at construction
+    # the training buffer in pinned host memory (training/trainer.py)
     training_buffer_cpu: bool = False
     iterations: int = 25000  # per-round cap (train_ace.py default)
     batch_size: int = 5120
@@ -107,8 +106,8 @@ class AceZeroConfig:
     base_seed: int = 2089  # trainer seed (train_ace.py:30)
     iterations_output: int = 500
     encoder_path: Path | None = None  # torch .pt encoder weights
-    # learned seed-depth head; not ported yet: a run without depth_files
-    # raises at construction
+    # learned seed-depth head for a run without depth_files; None takes the
+    # newest shipped head (weights/tpu_depth_v4.pt, v3, v1)
     depth_network: Path | None = None
     registration_frame_chunk: int = 64
 
@@ -128,9 +127,8 @@ class AceZeroConfig:
     # `device` argument); parallel/mesh.py is not ported
     num_devices: int = 0
     num_decode_workers: int = 16
-    # name parity only: the decoded-canvas cache is not ported yet; its
-    # default is a per-user directory, not the JAX package's shared
-    # /tmp/acezero_canvas_cache
+    # the decoded-canvas cache (data/images.py; None turns it off): a
+    # per-user directory, not the JAX package's shared /tmp/acezero_canvas_cache
     decode_cache_dir: Path | None = Path(tempfile.gettempdir()) / f"acezero_canvas_cache-{os.getuid()}"
     refinement_steps: int = 100  # registrar refit cap (early-stops on no growth)
     # registrar two-tier refit: first-pass step cap before stragglers re-run

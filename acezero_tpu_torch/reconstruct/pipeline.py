@@ -22,11 +22,15 @@ the same stage names for `utils.profiling.stage_report`:
      refits did not drain the drift, the corrected pose graph is the final
      estimate (`poses_iteration{n}_loopclosed.txt`).
 
-Left out, each raising NotImplementedError at construction: the learned
-seed-depth head (a run without `depth_files` and without `seed_network`),
-calibration files, rendering, point-cloud export and the host-spill
-training buffer. `prewarm` does nothing: it hides XLA compile latency,
-which the port does not have.
+Seed depth comes from `depth_files`, from a `depth_estimator` the caller
+plugs in, or, as in the JAX package, from the learned seed-depth head
+(`cfg.depth_network`, else the newest shipped head in `weights/`).
+`--export_point_cloud` writes `pc_final.ply` from the final map
+(export/point_cloud.py); `--training_buffer_cpu` keeps the training buffer
+in host memory (training/trainer.py). Left out: rendering
+(`--render_visualization` raises NotImplementedError at construction).
+`prewarm` does nothing: it hides XLA compile latency, which the port does
+not have.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ import numpy as np
 import torch
 
 from acezero_tpu_torch import resolve_device
-from acezero_tpu_torch.data.depth import depth_to_canvas, load_depth_file
+from acezero_tpu_torch.data.depth import DepthEstimator, depth_to_canvas, learned_depth_estimator, load_depth_file
+from acezero_tpu_torch.data.images import read_rgb
 from acezero_tpu_torch.data.scene import SceneData, load_scene
+from acezero_tpu_torch.export.point_cloud import export_point_cloud_from_network
 from acezero_tpu_torch.io.pose_files import PoseFileEntry, get_files_from_glob, registration_rates, write_pose_file
 from acezero_tpu_torch.models import torch_io
 from acezero_tpu_torch.models.encoder import init_encoder_params
@@ -61,6 +67,9 @@ _logger = logging.getLogger(__name__)
 
 WEIGHTS = Path(__file__).resolve().parents[2] / "weights"
 SHIPPED_ENCODERS = ("tpu_encoder_v6.pt", "tpu_encoder_v5.pt", "tpu_encoder_v2.pt")
+# depth heads read the features of the encoder they were trained on: v4 on
+# v6, v3 on v5, v1 on v2 (the JAX package's order of preference)
+SHIPPED_DEPTH_HEADS = ("tpu_depth_v4.pt", "tpu_depth_v3.pt", "tpu_depth_v1.pt")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -68,18 +77,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class AceZeroPipeline:
-    def __init__(self, cfg: AceZeroConfig, device=None, encoder_params: dict | None = None):
-        # every branch the port leaves out raises here, before any work
-        if cfg.depth_files is None and cfg.seed_network is None:
-            raise _not_ported("the learned seed-depth head (pass --depth_files)", "section 1, learned seed depth")
-        if cfg.calibration_files is not None:
-            raise _not_ported("--calibration_files", "section 1, the rest of the host data path")
+    def __init__(self, cfg: AceZeroConfig, device=None, encoder_params: dict | None = None,
+                 depth_estimator: DepthEstimator | None = None):
+        # the branch the port leaves out raises here, before any work
         if cfg.render_visualization:
-            raise _not_ported("--render_visualization", "section 1, export and viz")
-        if cfg.export_point_cloud:
-            raise _not_ported("--export_point_cloud", "section 1, io/ply.py and export")
-        if cfg.training_buffer_cpu:
-            raise _not_ported("--training_buffer_cpu", "section 1, the host-spill buffer")
+            raise _not_ported("--render_visualization", "section 1, viz")
 
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -106,16 +108,29 @@ class AceZeroPipeline:
 
         self.head_cfg = HeadConfig(num_head_blocks=cfg.num_head_blocks, use_homogeneous=cfg.use_homogeneous)
 
+        use_heuristic = cfg.use_external_focal_length < 0 and cfg.calibration_files is None
         with stage("scene_load"):
             self.scene = load_scene(
                 cfg.rgb_files,
                 image_short_size=cfg.image_resolution,
-                use_heuristic_focal_length=cfg.use_external_focal_length < 0,
+                use_heuristic_focal_length=use_heuristic,
                 external_focal_length=cfg.use_external_focal_length if cfg.use_external_focal_length >= 0 else None,
+                calibration_files=cfg.calibration_files,
                 num_workers=cfg.num_decode_workers,
+                decode_cache_dir=cfg.decode_cache_dir,
             )
         _logger.info("Loaded %d images onto a %dx%d canvas.", len(self.scene), *self.scene.canvas_hw)
+
+        self.depth_estimator = depth_estimator
         self.depth_files = get_files_from_glob(cfg.depth_files) if cfg.depth_files is not None else None
+        if self.depth_files is None and self.depth_estimator is None:
+            # a bare image-glob run: the learned seed-depth head, paired with
+            # the encoder it was trained on
+            candidates = [cfg.depth_network] if cfg.depth_network else [WEIGHTS / c for c in SHIPPED_DEPTH_HEADS]
+            depth_net = next((Path(c) for c in candidates if Path(c).exists()), None)
+            if depth_net is not None:
+                self.depth_estimator = learned_depth_estimator(depth_net, encoder_params=self.encoder_params)
+                _logger.info("Using learned seed-depth estimator: %s", depth_net)
         self._probe_memo = None  # see _loop_close
 
     # ------------------------------------------------------------- configs
@@ -205,7 +220,12 @@ class AceZeroPipeline:
 
     def _seed_depth_canvas(self, frame_idx: int) -> np.ndarray:
         h, w = self.scene.images.sizes[frame_idx]
-        depth = load_depth_file(self.depth_files[frame_idx])
+        if self.depth_files is not None:
+            depth = load_depth_file(self.depth_files[frame_idx])
+        elif self.depth_estimator is not None:
+            depth = self.depth_estimator(read_rgb(self.scene.rgb_files[frame_idx]))
+        else:
+            raise ValueError("Seed initialization needs depth: pass depth_files or a depth_estimator.")
         return depth_to_canvas(depth, (int(h), int(w)), self.scene.canvas_hw)
 
     def _seed_trainer(self, frame: int, train_cfg: TrainConfig, base_seed: int) -> MappingTrainer:
@@ -554,6 +574,11 @@ class AceZeroPipeline:
         )
         _logger.info(report)
         _logger.info("Stage breakdown:\n%s", stage_report())
+
+        if cfg.export_point_cloud:
+            with stage("export"):
+                export_point_cloud_from_network(self.out / "pc_final.ply", self.encoder_params, head_params,
+                                                self.head_cfg, self.scene, entries, dense=cfg.dense_point_cloud)
         return {
             "entries": entries,
             "head_params": head_params,

@@ -13,8 +13,11 @@ scene coordinates, image index, augmentation theta and scale.
 The row count is padded to a power-of-two bucket and the pad is filled
 cyclically from the real rows, as in the JAX package (the trainer draws
 batch rows uniformly over the padded count, so the pad changes the row
-distribution and is kept). The host-spill buffer (`--training_buffer_cpu`)
-is not ported yet.
+distribution and is kept). With `host_spill` (`--training_buffer_cpu`) the
+rows are written to host memory (pinned when the encoder is on the card),
+each chunk as it is made; the trainer gathers its batches there. Unlike the
+JAX package's host buffer, it keeps the bucket pad, so both buffers hold
+the same rows and one seed draws the same batches from either.
 """
 
 from __future__ import annotations
@@ -66,16 +69,16 @@ def buffer_alloc_rows(cfg: BufferConfig, num_images: int, pad_rows_to_bucket: bo
     return total, alloc
 
 
-def allocate_buffer(alloc: int, feat_dim: int, device="cpu") -> dict:
-    """Zero-initialised structure-of-arrays patch buffer on `device`."""
-    return {
-        "features": torch.zeros((alloc, feat_dim), dtype=torch.bfloat16, device=device),
-        "target_px": torch.zeros((alloc, 2), dtype=torch.float32, device=device),
-        "target_crds": torch.zeros((alloc, 3), dtype=torch.float32, device=device),
-        "img_idx": torch.zeros((alloc,), dtype=torch.int32, device=device),
-        "theta": torch.zeros((alloc,), dtype=torch.float32, device=device),
-        "scale": torch.ones((alloc,), dtype=torch.float32, device=device),
-    }
+def allocate_buffer(alloc: int, feat_dim: int, device="cpu", pin_memory: bool = False) -> dict:
+    """Zero-initialised structure-of-arrays patch buffer on `device` (host
+    memory pinned for asynchronous copies with `pin_memory`)."""
+    shapes = {"features": ((alloc, feat_dim), torch.bfloat16), "target_px": ((alloc, 2), torch.float32),
+              "target_crds": ((alloc, 3), torch.float32), "img_idx": ((alloc,), torch.int32),
+              "theta": ((alloc,), torch.float32), "scale": ((alloc,), torch.float32)}
+    buffer = {k: torch.zeros(shape, dtype=dtype, device=device, pin_memory=pin_memory)
+              for k, (shape, dtype) in shapes.items()}
+    buffer["scale"].fill_(1.0)
+    return buffer
 
 
 def _fill_chunk(encoder_params: dict, images_u8: torch.Tensor, sizes: torch.Tensor,
@@ -137,6 +140,7 @@ def fill_training_buffer(
     generator: torch.Generator | None = None,
     pad_rows_to_bucket: bool = False,
     draws=None,
+    host_spill: bool = False,
 ) -> dict:
     """Fill the patch buffer from a scene's canvases.
 
@@ -145,8 +149,9 @@ def fill_training_buffer(
     targets (depth supervision), None for self-supervised rounds.
     `draws(pass_index, chunk_index, image_indices) -> dict` may supply each
     chunk's random draws (see `_fill_chunk`); otherwise they come from
-    `generator`. Returns a dict of tensors on the encoder's device: features (M, C) bf16, target_px (M, 2), target_crds (M, 3),
-    img_idx (M,) int32, theta (M,), scale (M,).
+    `generator`. Returns a dict of tensors on the encoder's device (on the
+    host with `host_spill`): features (M, C) bf16, target_px (M, 2),
+    target_crds (M, 3), img_idx (M,) int32, theta (M,), scale (M,).
     """
     device = encoder_params["conv1"]["w"].device
     images = torch.as_tensor(np.asarray(images_u8)).to(device)
@@ -156,7 +161,10 @@ def fill_training_buffer(
     total, alloc = buffer_alloc_rows(cfg, n, pad_rows_to_bucket)
     feat_dim = encoder_params["res2_conv3"]["w"].shape[0]
     S = cfg.samples_per_image
-    buffer = allocate_buffer(alloc, feat_dim, device)
+    if host_spill:
+        buffer = allocate_buffer(alloc, feat_dim, "cpu", pin_memory=device.type == "cuda")
+    else:
+        buffer = allocate_buffer(alloc, feat_dim, device)
     targets = None if target_maps is None else torch.as_tensor(np.asarray(target_maps, np.float32)).to(device)
 
     chunk = cfg.image_chunk
@@ -176,7 +184,7 @@ def fill_training_buffer(
             rows["img_idx"] = idx_t.to(torch.int32).repeat_interleave(S)
             n_rows = min(len(idx) * S, total - row)
             for k, v in rows.items():
-                buffer[k][row: row + n_rows] = v[:n_rows].to(buffer[k].dtype)
+                buffer[k][row: row + n_rows].copy_(v[:n_rows])
             row += n_rows
             if row >= total:
                 break

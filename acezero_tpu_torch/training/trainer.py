@@ -25,12 +25,23 @@ dispatches no step past the last `max_iterations` it read.
 `use_fused_head` keeps the JAX package's field name and has no effect: the
 standard head layout always takes the fused chain. The JAX package's
 `pose_table_bucket` (a compiled-shape bucket) has no counterpart.
+
+`buffer_host_spill` (`--training_buffer_cpu`) keeps the buffer rows in
+pinned host memory (`_HostBatches`): each step's rows are drawn by the same
+`torch.randint` call on the same generator as the device path's, gathered
+on the host a few steps ahead by a worker thread and copied to the card on
+a side stream that the step waits for. One seed therefore trains the same
+bits with either buffer. The JAX package builds a whole chunk's batches at
+once from a numpy generator of its own.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as _futures
+import contextlib
 import logging
 import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -79,7 +90,7 @@ class TrainConfig:
     focal_loss_normalize: bool = False
     use_depth: bool = False
     use_fused_head: bool = False  # name parity only: see the module note
-    buffer_host_spill: bool = False  # `--training_buffer_cpu`: not ported yet
+    buffer_host_spill: bool = False  # `--training_buffer_cpu`: the buffer in host memory
     chunk_steps: int = 500
     iterations_output: int = 500
     sync_every_chunks: int = 4  # chunks per host sync (the stop check)
@@ -247,23 +258,113 @@ def train_step(state: TrainState, batch: dict, ctx: dict, hp: dict, cfg: TrainCo
     return new_state, stats
 
 
+class _HostBatches:
+    """The batches of `num_steps` steps from a host-resident buffer, in step
+    order. Row indices come from the device path's call, `torch.randint(0,
+    M, (B,))` on `generator`, once a step (drawn DRAW_GROUP steps at a
+    time, on the side stream, and fetched to the host together), or from
+    `batch_indices`. A worker thread gathers each step's rows on the host
+    AHEAD steps before the step into pinned staging rows and copies them to
+    `device` on a side stream; `next()` makes the current stream wait for
+    that copy. On the CPU the gathered rows are the batch."""
+
+    AHEAD = 2  # steps gathered before the step that takes them
+    DRAW_GROUP = 64  # steps whose indices are drawn and fetched together
+
+    def __init__(self, buffer: dict, device: torch.device, generator, batch_size: int, num_steps: int,
+                 batch_indices=None):
+        self.buffer, self.device, self.generator = buffer, device, generator
+        self.B, self.n = batch_size, num_steps
+        self.M = buffer["features"].shape[0]
+        self.batch_indices = batch_indices
+        self.cuda = device.type == "cuda"
+        self.side = torch.cuda.Stream(device) if self.cuda else None
+        slots = self.AHEAD + 1
+        self.staging = [{k: torch.empty((batch_size,) + tuple(v.shape[1:]), dtype=v.dtype, pin_memory=True)
+                         for k, v in buffer.items()} for _ in range(slots)] if self.cuda else None
+        self.copied = [None] * slots  # the H2D copy last made out of each staging slot
+        self.drawn = None  # (first step, (steps, B) host indices) of the current draw group
+        self.pool = _futures.ThreadPoolExecutor(max_workers=1)
+        self.pending = deque(self.pool.submit(self._prepare, s) for s in range(min(self.AHEAD, num_steps)))
+        self.submitted = len(self.pending)
+
+    def _indices(self, s: int) -> torch.Tensor:
+        if self.batch_indices is not None:
+            return torch.as_tensor(self.batch_indices[s]).to(torch.int64)
+        if self.drawn is None or s >= self.drawn[0] + len(self.drawn[1]):
+            count = min(self.DRAW_GROUP, self.n - s)
+            gen_dev = self.generator.device if self.generator is not None else self.device
+            with torch.cuda.stream(self.side) if self.cuda else contextlib.nullcontext():
+                idx = torch.stack([torch.randint(0, self.M, (self.B,), generator=self.generator, device=gen_dev)
+                                   for _ in range(count)])
+                self.drawn = (s, idx.cpu())
+        return self.drawn[1][s - self.drawn[0]]
+
+    def _prepare(self, s: int):
+        idx = self._indices(s)
+        if not self.cuda:
+            return {k: torch.index_select(v, 0, idx) for k, v in self.buffer.items()}, None
+        slot = s % len(self.staging)
+        if self.copied[slot] is not None:
+            self.copied[slot].synchronize()
+        rows = self.staging[slot]
+        for k, v in self.buffer.items():
+            torch.index_select(v, 0, idx, out=rows[k])
+        with torch.cuda.stream(self.side):
+            batch = {k: t.to(self.device, non_blocking=True) for k, t in rows.items()}
+            done = torch.cuda.Event()
+            done.record(self.side)
+        self.copied[slot] = done
+        return batch, done
+
+    def next(self) -> dict:
+        batch, done = self.pending.popleft().result()
+        if self.submitted < self.n:
+            self.pending.append(self.pool.submit(self._prepare, self.submitted))
+            self.submitted += 1
+        if done is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(done)
+            for t in batch.values():
+                t.record_stream(current)
+        return batch
+
+    def close(self) -> None:
+        for f in self.pending:
+            f.cancel()
+        self.pool.shutdown(wait=True)
+
+
 def train_steps(state: TrainState, buffer: dict, ctx: dict, hp: dict, cfg: TrainConfig,
                 head_cfg: HeadConfig, num_steps: int, generator: torch.Generator | None = None,
                 batch_indices=None) -> tuple[TrainState, dict]:
     """`num_steps` steps on batches of rows drawn uniformly (with
     replacement) from the buffer, or given as `batch_indices` (num_steps, B).
-    Returns the state and the stacked per-step stats, still on the device."""
+    With `cfg.buffer_host_spill` the buffer lies in host memory and the
+    batches stream to the device (`_HostBatches`), drawn as the device path
+    draws them. Returns the state and the stacked per-step stats, still on
+    the device."""
     M = buffer["features"].shape[0]
-    dev = buffer["features"].device
+    dev = ctx["poses_w2c"].device
+    stream = None
+    if cfg.buffer_host_spill:
+        stream = _HostBatches(buffer, dev, generator, cfg.batch_size, num_steps, batch_indices)
     hist = []
-    for i in range(num_steps):
-        if batch_indices is not None:
-            idx = torch.as_tensor(batch_indices[i], device=dev).to(torch.int64)
-        else:
-            idx = torch.randint(0, M, (cfg.batch_size,), generator=generator, device=dev)
-        batch = {k: v[idx] for k, v in buffer.items()}
-        state, stats = train_step(state, batch, ctx, hp, cfg, head_cfg)
-        hist.append(stats)
+    try:
+        for i in range(num_steps):
+            if stream is not None:
+                batch = stream.next()
+            else:
+                if batch_indices is not None:
+                    idx = torch.as_tensor(batch_indices[i], device=dev).to(torch.int64)
+                else:
+                    idx = torch.randint(0, M, (cfg.batch_size,), generator=generator, device=dev)
+                batch = {k: v[idx] for k, v in buffer.items()}
+            state, stats = train_step(state, batch, ctx, hp, cfg, head_cfg)
+            hist.append(stats)
+    finally:
+        if stream is not None:
+            stream.close()
     return state, {k: torch.stack([s[k] for s in hist]) for k in hist[0]}
 
 
@@ -283,9 +384,6 @@ class MappingTrainer:
         # it the trainer syncs every `chunk_steps` steps and calls it at each
         # sync that is `iterations_output` past the last call, and at the end
         self.frame_callback = frame_callback
-        if cfg.buffer_host_spill:
-            raise NotImplementedError(
-                "the host-spill training buffer (--training_buffer_cpu) is not ported yet (ROADMAP.md)")
         self.scene = scene
         self.cfg = cfg
         self.buffer_cfg = buffer_cfg
@@ -326,6 +424,7 @@ class MappingTrainer:
         return fill_training_buffer(
             self.encoder_params, self.scene.images.content(), self.scene.images.sizes, self.buffer_cfg,
             target_maps=self._seed_target_maps(), generator=self.generator, pad_rows_to_bucket=True,
+            host_spill=self.cfg.buffer_host_spill,
         )
 
     def build_state(self) -> TrainState:

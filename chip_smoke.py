@@ -35,7 +35,9 @@ Phases:
               run): coordinate maps and features (K1), the pairwise Sim(3)
               fits, the pose graph, sub-pixel refinement and the track BA,
               each timed; counts zeroed just before and read just after;
-              then loop_close_core on the card and on the CPU, on exact
+              the call repeated must give the same bits (the BA's sums do
+              not depend on thread order); then loop_close_core on the
+              card and on the CPU, on exact
               drifted maps of 16 frames (every fit and correction must
               agree) and on the card's maps and features of a 16-frame
               subgraph (the same edges; LOOPCLOSE_TOL_*)
@@ -51,7 +53,23 @@ Phases:
               read just after; every loop-closure call's diagnostics;
               poses_final.txt scored against the shipped poses after a
               Sim(3) alignment
-  9 report    one JSON line describing every kernel, then the card's
+  9 seeddepth the learned seed-depth estimator (v4 head, v6 encoder) on
+              the 10 chesslike_a frames scripts/depth_probe.py picks:
+              raw_rel, shape_rel, scale_cv within SEEDDEPTH_TOL of the JAX
+              package's (SEEDDEPTH_JAX), ms per frame, and one frame on the
+              card against the port's CPU path (max |d log-depth|)
+ 10 bare      the reconstruction CLI as a user runs it on a bare image glob:
+              no depth files (the learned seed-depth head), per-frame
+              calibration files, loop closure on, --export_point_cloud, at
+              full width and phase pipeline's cut budgets; counts zeroed just
+              before and read just after; the rate at confidence 500 must
+              reach BARE_SHARE and pc_final.ply must hold points; scene_load
+              reads the decode cache phase pipeline filled
+ 11 spill     MappingTrainer on the shipped poses at full width, the device
+              buffer against the host-spill buffer (--training_buffer_cpu)
+              from one seed: equal fills and bit-equal parameters after
+              SPILL_STEPS[0] steps, then SPILL_STEPS[1] steps of each timed
+ 12 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons). With a
@@ -81,7 +99,7 @@ HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
 PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
-          "report")
+          "seeddepth", "bare", "spill", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -184,6 +202,34 @@ PIPELINE_OVERRIDES = {"learning_rate_warmup_iterations": 200}
 # three frames under the reference; a loop whose rounds do not train stays
 # at the seed map's 3-12%.
 PIPELINE_SHARE = 0.25
+# phase seeddepth: the learned estimator on every SEEDDEPTH_STRIDE-th frame
+# (scripts/depth_probe.py's choice), its statistics within SEEDDEPTH_TOL of
+# the JAX package's on the CPU (scripts/depth_probe.py --scenes chesslike_a,
+# JAX_PLATFORMS=cpu); the TPU record (results/heldout/DEPTH_PROBE.jsonl,
+# line 1) is printed beside them for reference only
+DEPTH_HEAD = ROOT / "weights" / "tpu_depth_v4.pt"
+SEEDDEPTH_STRIDE = 6
+SEEDDEPTH_JAX = {"raw_rel": 0.10833161348231829, "shape_rel": 0.0638548779545724, "scale_cv": 0.11647150721114985}
+SEEDDEPTH_TPU_RECORD = {"raw_rel": 0.1074432695248704, "shape_rel": 0.0631153339142815,
+                        "scale_cv": 0.11822965491705718}
+SEEDDEPTH_TOL = 0.01
+# the card against the port's CPU path on one frame: max |log d_card - log
+# d_cpu| over the pixels. Both round the convolutions' bf16 outputs, but
+# cuDNN and the CPU sum in other orders, so single roundings flip and the
+# four depth convolutions carry them to the log-depth, a bf16 output itself
+# (the port's CPU path against the JAX package's: 0.018, and the same
+# tolerance, in tests/test_torch_depth.py)
+SEEDDEPTH_CPU_TOL = 0.03
+# phase bare: the floor of frames registered at confidence 500. The JAX
+# package registers 19 of the 60 frames with learned seed depth and loop
+# closure at these budgets (scripts/pipeline_parity.py --packages jax --size
+# full --learned_depth --loop_closure, seed 2089, on the CPU: 6.7, 18.3,
+# 21.7, 31.7, 31.7, 30.0, 31.7% over six rounds); the floor sits three
+# frames under it
+BARE_JAX_RATE = 19 / 60
+BARE_SHARE = 16 / 60
+# phase spill: steps held bit for bit, then steps timed with each buffer
+SPILL_STEPS = (200, 500)
 FRAMES = "frame_*.png"
 N_FRAMES = 60
 DEVICE = "cuda"
@@ -530,7 +576,11 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.ops import fused_head as fh
     from acezero_tpu_torch.registration.driver import _canvas_prologue
     from acezero_tpu_torch.registration.ransac import RansacConfig, estimate_poses_batch
+    from acezero_tpu_torch.data.depth import learned_depth_estimator
+    from acezero_tpu_torch.data.images import read_rgb
     from acezero_tpu_torch.data.scene import load_scene
+    from acezero_tpu_torch.io.ply import read_ply_points
+    from acezero_tpu_torch.training.optim import tree_leaves
     from acezero_tpu_torch.training import BufferConfig, MappingTrainer, ReproLossConfig, ScheduleConfig, TrainConfig
     from acezero_tpu_torch.training.trainer import train_hp, train_steps
     from acezero_tpu_torch.utils import profiling
@@ -900,6 +950,17 @@ def main(argv=None) -> int:
                     setattr(lc, attr, fn)
             require("skipped" not in diag, f"loop closure skipped: {diag.get('skipped')}")
             require(lc_launches > 0, "loop closure never launched fused_head_fwd")
+            # the same call again must give the same bits: no sum on the path
+            # depends on thread order (the BA's normal equations included)
+            again, diag2 = lc.loop_close_entries(enc, head_m, head_cfg_m, scene, entries, conf_threshold=500.0,
+                                                 device=DEVICE)
+            same = [bool(np.array_equal(a.pose_w2c, b.pose_w2c)) for a, b in zip(corrected, again)]
+            rec["repeat_bit_equal_frames"] = sum(same)
+            rec["repeat_ba_bit_equal"] = diag.get("ba") == diag2.get("ba")
+            require(all(same) and len(again) == len(corrected),
+                    f"loop_close_entries twice on one input: {len(same) - sum(same)} corrections differ")
+            require(rec["repeat_ba_bit_equal"], f"the BA's diagnostics differ between two calls: {diag.get('ba')} "
+                                                f"against {diag2.get('ba')}")
             require(lc_bwd == 0, "loop closure launched the backward kernel")
             moved = [float(np.linalg.norm(e.pose_c2w[:3, 3] - gts[e.rgb_file][:3, 3])) for e in corrected]
             aligned = evaluate_poses(corrected, [gts[f] for f in gt_files])
@@ -1005,6 +1066,7 @@ def main(argv=None) -> int:
                 del trainer, buffer, state
 
     pipe_launches = None  # launch counts of phase pipeline
+    pipe_scene_load = None  # phase pipeline's scene_load seconds (a cold decode cache)
     if "pipeline" in phases:
         with phase("pipeline", {}) as rec:
             rec.update(kind=kind, nvidia_smi=smi, cuts={**PIPELINE_CUTS, **PIPELINE_OVERRIDES})
@@ -1060,6 +1122,7 @@ def main(argv=None) -> int:
             _, scale = estimate_alignment(np.stack([e.pose_c2w for e in by_name]), np.stack(gts),
                                           np.asarray([e.confidence for e in by_name]))
             rates = registration_rates([e.confidence for e in entries], [500, 1000, 2000, 4000])
+            pipe_scene_load = profiling.stage_totals().get("scene_load", (None,))[0]
             rec.update(
                 wall_seconds=wall, stage_seconds={k: v[0] for k, v in profiling.stage_totals().items()},
                 stage_calls={k: v[1] for k, v in profiling.stage_totals().items()},
@@ -1085,6 +1148,165 @@ def main(argv=None) -> int:
             require(bool(full), f"no full loop-closure measurement ran unskipped: {lc_calls}")
             require(all(c["fused_head_fwd_launches"] > 0 for c in lc_calls), "a loop-closure call never launched K1")
 
+    if "seeddepth" in phases:
+        with phase("seeddepth", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi, jax_cpu=SEEDDEPTH_JAX, tpu_record=SEEDDEPTH_TPU_RECORD,
+                       tolerance=SEEDDEPTH_TOL, cpu_tolerance=SEEDDEPTH_CPU_TOL)
+            est = learned_depth_estimator(DEPTH_HEAD, encoder_path=ENCODER, device=DEVICE)
+            frames = sorted(glob.glob(str(SCENE / FRAMES)))[::SEEDDEPTH_STRIDE]
+            raws, shapes, scales, ms, preds = [], [], [], [], []
+            est(read_rgb(frames[0]))  # cuDNN's first-call set-up, outside the times
+            for f in frames:
+                img = read_rgb(f)
+                gt = np.load(f[: -len(".png")] + "_depth.npy").astype(np.float64)
+                t0 = synced_clock(torch)
+                pred = est(img)
+                ms.append((synced_clock(torch) - t0) * 1e3)
+                preds.append(pred)
+                v = gt > 0
+                raws.append(float(np.median(np.abs(pred[v] - gt[v]) / gt[v])))
+                sc = float(np.median(gt[v]) / np.median(pred[v]))
+                shapes.append(float(np.median(np.abs(pred[v] * sc - gt[v]) / gt[v])))
+                scales.append(sc)
+            stats = {"raw_rel": float(np.median(raws)), "shape_rel": float(np.median(shapes)),
+                     "scale_cv": float(np.std(scales) / np.mean(scales))}
+            cpu_pred = learned_depth_estimator(DEPTH_HEAD, encoder_path=ENCODER, device="cpu")(read_rgb(frames[0]))
+            dlog = float(np.abs(np.log(preds[0]) - np.log(cpu_pred)).max())
+            rec.update(frames=len(frames), **stats, ms_per_frame=statistics.median(ms), ms_per_frame_all=ms,
+                       card_vs_cpu_max_abs_dlog=dlog, finite=bool(all(np.isfinite(p_).all() for p_ in preds)))
+            require(len(frames) == 10, f"expected 10 frames at stride {SEEDDEPTH_STRIDE}, found {len(frames)}")
+            require(rec["finite"] and all(p_.shape == (480, 640) and (p_ > 0).all() for p_ in preds),
+                    "the estimator's depth is not finite and positive at 480 x 640")
+            for key, ref in SEEDDEPTH_JAX.items():
+                require(abs(stats[key] - ref) <= SEEDDEPTH_TOL, f"seed depth {key} {stats[key]:.4f} is not within "
+                                                                f"{SEEDDEPTH_TOL} of the JAX package's {ref:.4f}")
+            require(dlog <= SEEDDEPTH_CPU_TOL, f"card and CPU log-depth differ by {dlog} > {SEEDDEPTH_CPU_TOL}")
+
+    bare_launches = None  # launch counts of phase bare
+    if "bare" in phases:
+        with phase("bare", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi, cuts={**PIPELINE_CUTS, **PIPELINE_OVERRIDES}, floor=BARE_SHARE,
+                       jax_cpu_rate=BARE_JAX_RATE)
+            flags = [f"--{k}={v}" for k, v in PIPELINE_CUTS.items()]
+            heads, export_shapes, export_seconds = [], [], []
+            real_lde, real_export = tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network
+
+            def recorded_lde(head_path, *a, **k):
+                heads.append(Path(head_path).name)
+                return real_lde(head_path, *a, **k)
+
+            def recorded_export(*a, **k):
+                t0 = synced_clock(torch)
+                with k1_shapes(fh, export_shapes):
+                    out = real_export(*a, **k)
+                export_seconds.append(synced_clock(torch) - t0)
+                return out
+
+            with tempfile.TemporaryDirectory() as tmp:
+                # one focal file per frame, from the scene's focal_length.txt
+                focal = (SCENE / "focal_length.txt").read_text().strip()
+                (Path(tmp) / "calib").mkdir()
+                for f in sorted(glob.glob(str(SCENE / FRAMES))):
+                    (Path(tmp) / "calib" / (Path(f).stem + ".txt")).write_text(focal + "\n")
+                out_dir = Path(tmp) / "out"
+                argv = [str(SCENE / FRAMES), str(out_dir), "--calibration_files", str(Path(tmp) / "calib" / "*.txt"),
+                        "--encoder_path", str(ENCODER), "--export_point_cloud", "true", *flags, "--device", DEVICE]
+                profiling.reset_stages()
+                tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network = recorded_lde, recorded_export
+                try:
+                    fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                    t0 = time.perf_counter()
+                    result = ace_zero_cli.main(argv, **PIPELINE_OVERRIDES)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    bare_launches = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD, "export_shapes": export_shapes}
+                finally:
+                    tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network = real_lde, real_export
+                lines = (out_dir / "poses_final.txt").read_text().splitlines()
+                entries = read_pose_file(out_dir / "poses_final.txt")
+                xyz, rgb = read_ply_points(out_dir / "pc_final.ply")
+                artifacts = sorted(p_.name for p_ in out_dir.iterdir())
+            gts = [np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in sorted(glob.glob(str(SCENE / FRAMES)))]
+            errors = evaluate_poses(entries, gts)
+            rates = registration_rates([e.confidence for e in entries], [500, 1000, 2000, 4000])
+            totals = profiling.stage_totals()
+            rec.update(
+                wall_seconds=wall, stage_seconds={k: v[0] for k, v in totals.items()},
+                stage_calls={k: v[1] for k, v in totals.items()}, depth_heads=heads,
+                scene_load_seconds={"pipeline": pipe_scene_load, "bare": totals.get("scene_load", (None,))[0]},
+                rounds=result["iterations"], rate_history=result["rate_history"],
+                registration_rates=dict(zip(("500", "1000", "2000", "4000"), rates)),
+                focal_estimate=result["focal_estimate"], artifacts=artifacts,
+                aligned_within_5cm_5deg_pct=errors.accuracy, median_rot_deg=errors.median_rot_deg,
+                median_trans_cm=errors.median_trans_cm, fused_head_fwd_launches=bare_launches["fwd"],
+                fused_head_bwd_launches=bare_launches["bwd"], export_fused_head_fwd_shapes=export_shapes,
+                export_seconds=export_seconds, ply_points=int(len(xyz)),
+                ply_finite=bool(np.isfinite(xyz).all()), report=result["report"])
+            require(heads == [DEPTH_HEAD.name], f"the run did not seed from the learned head {DEPTH_HEAD.name}: {heads}")
+            require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
+                    f"poses_final.txt is not {N_FRAMES} lines of 10 tokens")
+            require(all(np.isfinite(e.pose_w2c).all() for e in entries), "non-finite pose in poses_final.txt")
+            require(bare_launches["fwd"] > 0 and bare_launches["bwd"] > 0, f"a kernel never launched: {bare_launches}")
+            require(len(export_shapes) > 0, "the point-cloud export never launched fused_head_fwd")
+            require(len(xyz) > 0 and rec["ply_finite"] and rgb is not None and len(rgb) == len(xyz),
+                    f"pc_final.ply holds {len(xyz)} points")
+            require(rates[0] >= BARE_SHARE,
+                    f"the bare run registered {rates[0]:.1%} of the frames at confidence 500 (floor {BARE_SHARE:.1%})")
+
+    spill_launches = None  # launch counts of phase spill
+    if "spill" in phases:
+        with phase("spill", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi, steps_held=SPILL_STEPS[0], steps_timed=SPILL_STEPS[1])
+            scene = load_scene(str(SCENE / FRAMES), pose_files=str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                               external_focal_length=FOCAL)
+            enc = torch_io.load_encoder(ENCODER, DEVICE)
+            runs = {}
+            spill_launches = {"fwd": 0, "bwd": 0}
+            for name, spill in (("device", False), ("host_spill", True)):
+                cfg = TrainConfig(schedule=ScheduleConfig(learning_rate_max=0.003), loss=ReproLossConfig(loss_type="tanh"),
+                                  buffer_host_spill=spill)
+                trainer = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(), base_seed=2089)
+                hp = train_hp(cfg)
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = synced_clock(torch)
+                buffer = trainer.build_buffer()
+                fill = synced_clock(torch) - t0
+                state = trainer.build_state()
+                state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), SPILL_STEPS[0],
+                                       generator=trainer.generator)
+                torch.cuda.synchronize()
+                held = [t.cpu() for t in tree_leaves(state.head_params)]
+                t0 = time.perf_counter()
+                state, _ = train_steps(state, buffer, trainer.ctx, hp, cfg, HeadConfig(), SPILL_STEPS[1],
+                                       generator=trainer.generator)
+                dispatched = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                timed = time.perf_counter() - t0
+                spill_launches["fwd"] += fh.LAUNCHES
+                spill_launches["bwd"] += fh.LAUNCHES_BWD
+                runs[name] = {"buffer": buffer, "params": held}
+                rec[name] = {"fill_seconds": fill, "buffer_rows": int(buffer["features"].shape[0]),
+                             "buffer_device": str(buffer["features"].device),
+                             "buffer_pinned": bool(buffer["features"].is_pinned()) if spill else None,
+                             "steps_per_s": SPILL_STEPS[1] / timed, "ms_per_step": timed / SPILL_STEPS[1] * 1e3,
+                             "host_ms_per_step": dispatched / SPILL_STEPS[1] * 1e3,
+                             "fused_head_fwd_launches": fh.LAUNCHES, "fused_head_bwd_launches": fh.LAUNCHES_BWD}
+                del trainer, state
+            dev_buf, host_buf = runs["device"]["buffer"], runs["host_spill"]["buffer"]
+            rec["fill_equal_rows"] = all(torch.equal(dev_buf[k].cpu(), host_buf[k]) for k in dev_buf)
+            rec["params_bit_equal"] = all(torch.equal(a, b) for a, b in zip(runs["device"]["params"],
+                                                                              runs["host_spill"]["params"]))
+            rec["spill_over_device_steps_per_s"] = rec["host_spill"]["steps_per_s"] / rec["device"]["steps_per_s"]
+            del runs, dev_buf, host_buf
+            torch.cuda.empty_cache()
+            require(rec["host_spill"]["buffer_device"] == "cpu" and rec["host_spill"]["buffer_pinned"],
+                    "the host-spill buffer is not in pinned host memory")
+            require(rec["fill_equal_rows"], "the host-spill fill differs from the device fill")
+            require(rec["params_bit_equal"], f"host-spill and device-buffer parameters differ after {SPILL_STEPS[0]} steps")
+            total = sum(SPILL_STEPS)
+            require(all(rec[n]["fused_head_bwd_launches"] == total and rec[n]["fused_head_fwd_launches"] >= total
+                        for n in ("device", "host_spill")), f"a run missed its kernels: {spill_launches}")
+
     if "report" in phases:
         with phase("report", {}):
             def pick(entry, *keys):
@@ -1097,19 +1319,24 @@ def main(argv=None) -> int:
             pipe_fwd = pipe_launches["fwd"] if pipe_launches else 0
             pipe_lc = pipe_launches["loop_closure"] if pipe_launches else None
             pipe_bwd = pipe_launches["bwd"] if pipe_launches else 0
+            bare_fwd, bare_bwd = (bare_launches["fwd"], bare_launches["bwd"]) if bare_launches else (0, 0)
+            spill_fwd, spill_bwd = (spill_launches["fwd"], spill_launches["bwd"]) if spill_launches else (0, 0)
             emit(kernels=[{
                 "name": "fused_head_fwd",
                 "route": "cuda",
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:108",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-                "launches": (launches or 0) + fwd + (lc_launches or 0) + pipe_fwd,
+                "launches": (launches or 0) + fwd + (lc_launches or 0) + pipe_fwd + bare_fwd + spill_fwd,
                 "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None,
                                      "loopclose": lc_launches, "pipeline": pipe_fwd if pipe_launches else None,
-                                     "pipeline_loop_closure": pipe_lc},
+                                     "pipeline_loop_closure": pipe_lc, "bare": bare_fwd if bare_launches else None,
+                                     "spill": spill_fwd if spill_launches else None},
                 # [B, L] of each loop-closure launch, recorded where it was made
                 "loop_closure_shapes": {"loopclose": lc_shapes,
                                         "pipeline": pipe_launches["loop_closure_shapes"] if pipe_launches else None},
+                # [B, L] of each launch of phase bare's point-cloud export
+                "export_shapes": bare_launches["export_shapes"] if bare_launches else None,
                 **pick(k1_reg, *fields),
                 "ms": k1_reg.get("kernel_ms"),
                 "shape": pick(k1_reg, "B", "L"),
@@ -1126,10 +1353,12 @@ def main(argv=None) -> int:
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:112",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
-                "launches": bwd + pipe_bwd,
+                "launches": bwd + pipe_bwd + bare_bwd + spill_bwd,
                 "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None,
                                      "loopclose": 0 if lc_launches is not None else None,
-                                     "pipeline": pipe_bwd if pipe_launches else None},
+                                     "pipeline": pipe_bwd if pipe_launches else None,
+                                     "bare": bare_bwd if bare_launches else None,
+                                     "spill": spill_bwd if spill_launches else None},
                 **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),
                 "ms": k2_map.get("kernel_ms"),
                 "shape": pick(k2_map, "B", "L"),

@@ -13,6 +13,7 @@ helpers are exact.
 import jax
 import jax.numpy as jnp
 import numpy as np
+from PIL import Image
 import pytest
 import torch
 
@@ -142,8 +143,12 @@ def test_depth_files_and_seed_coordinates(tmp_path):
     depth[:4] = 0.0
     np.save(tmp_path / "d.npy", depth)
     np.testing.assert_array_equal(td.load_depth_file(tmp_path / "d.npy"), jd.load_depth_file(str(tmp_path / "d.npy")))
-    with pytest.raises(NotImplementedError):
-        td.load_depth_file(tmp_path / "d.png")
+    # a 16-bit depth PNG in millimetres reads as metres, as the JAX package reads it through PIL
+    mm = np.round(depth * 1000).astype(np.uint16)
+    Image.fromarray(mm).save(tmp_path / "d.png")
+    got_png = td.load_depth_file(tmp_path / "d.png")
+    np.testing.assert_array_equal(got_png, jd.load_depth_file(str(tmp_path / "d.png")))
+    np.testing.assert_array_equal(got_png, mm / 1000.0)
     np.testing.assert_array_equal(td.subsample_depth(depth.astype(np.float32)), jd.subsample_depth(depth.astype(np.float32)))
     pose = np.eye(4)
     pose[:3, :3] = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])

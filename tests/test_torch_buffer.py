@@ -141,3 +141,23 @@ def test_empty_fill_does_not_raise():
     with pytest.raises(ValueError):
         jb.fill_training_buffer(jax.random.PRNGKey(0), enc_j, imgs, sizes, jb.BufferConfig(**kw),
                                 pad_rows_to_bucket=True)
+
+
+@pytest.mark.parametrize("use_depth,pad", [(False, True), (True, True), (True, False)])
+def test_host_spill_fill_equals_device_fill(use_depth, pad):
+    """host_spill writes each chunk's rows to host memory: row for row the
+    same buffer as the default fill from one generator seed, bucket pad
+    included (the JAX package's host buffer has no pad; the port keeps it so
+    both buffers draw the same batches)."""
+    rng = np.random.default_rng(14)
+    imgs, sizes = _scene(rng)
+    targets = rng.normal(size=(5, 8, 12, 3)).astype(np.float32) if use_depth else None
+    cfg = tb.BufferConfig(max_buffer_size=400, samples_per_image=32, max_dataset_passes=3, image_chunk=2)
+    enc = tio.load_encoder(ENCODER)
+    dev, host = (tb.fill_training_buffer(enc, imgs, sizes, cfg, target_maps=targets, pad_rows_to_bucket=pad,
+                                         generator=torch.Generator().manual_seed(4), host_spill=spill)
+                 for spill in (False, True))
+    assert set(host) == set(dev) and all(v.device.type == "cpu" for v in host.values())
+    assert host["features"].shape[0] == (4096 if pad else 384)
+    for k in dev:
+        assert host[k].dtype == dev[k].dtype and torch.equal(host[k], dev[k]), k

@@ -23,6 +23,8 @@ def test_default_runs_every_phase():
     ("device", ["device"]),
     ("report,pipeline,profile", ["device", "profile", "pipeline", "report"]),
     ("pipeline,loopclose,mapping", ["device", "mapping", "loopclose", "pipeline"]),
+    ("report,spill,bare,seeddepth,pipeline", ["device", "pipeline", "seeddepth", "bare", "spill", "report"]),
+    ("spill", ["device", "spill"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -69,7 +71,7 @@ def test_pipeline_phase_after_profile_before_report():
     """Phase pipeline runs the reconstruction CLI after profile and before
     report, with the cut budgets the phase lists."""
     phases = list(chip_smoke.PHASES)
-    assert phases.index("profile") + 1 == phases.index("pipeline") == phases.index("report") - 1
+    assert phases.index("profile") + 1 == phases.index("pipeline") < phases.index("report")
     assert chip_smoke.parse_phases(["--phases", "pipeline"]) == ["device", "pipeline"]
     assert chip_smoke.PIPELINE_CUTS == {"try_seeds": 3, "seed_iterations": 1000, "iterations": 2000,
                                         "cooldown_iterations": 500, "refit_iterations": 2000,
@@ -119,3 +121,18 @@ def test_core_with_fits_reads_every_selected_pair():
     assert d["pairs_equal"] and d["edges_card"] == d["edges_cpu"] == diag["edges"]
     assert d["edge_fits"]["trans"]["max"] == d["frame_corrections"]["trans"]["max"] == 0.0
     assert d["edge_fits"]["inliers_equal"] == 1.0 and d["frame_corrections"]["scale_max"] == 0.0
+
+
+def test_new_phases_after_pipeline_in_order():
+    """seeddepth, bare and spill run after pipeline (bare reads the decode
+    cache pipeline filled) and before report; bare reuses pipeline's cut
+    budgets, its floor sits three frames of 60 under the JAX package's rate,
+    and seeddepth holds the JAX package's statistics within 0.01."""
+    phases = list(chip_smoke.PHASES)
+    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "spill", "report"]
+    n = chip_smoke.N_FRAMES
+    assert round(chip_smoke.BARE_SHARE * n) == round(chip_smoke.BARE_JAX_RATE * n) - 3 == 16
+    assert chip_smoke.BARE_SHARE == 16 / n  # a frame count: 16 registered frames reach it exactly
+    assert chip_smoke.SEEDDEPTH_TOL == 0.01 and set(chip_smoke.SEEDDEPTH_JAX) == {"raw_rel", "shape_rel", "scale_cv"}
+    assert chip_smoke.SEEDDEPTH_STRIDE == 6 and chip_smoke.DEPTH_HEAD.name == "tpu_depth_v4.pt"
+    assert chip_smoke.SPILL_STEPS == (200, 500)

@@ -155,3 +155,73 @@ def test_loop_close_core_card_matches_cpu(cuda, frames, stride):
     assert d["edge_fits"]["trans"]["max"] <= tol and d["edge_fits"]["rot_deg"]["max"] <= 0.05
     assert d["frame_corrections"]["trans"]["max"] <= tol and d["frame_corrections"]["rot_deg"]["max"] <= 0.05
     assert d["frame_corrections"]["scale_max"] <= 1e-3
+
+
+def test_ba_and_loop_close_core_repeat_bit_for_bit(cuda):
+    """loop_close_core and refine_poses_ba run twice on the card on one
+    input give the same bits: no sum on the path depends on thread order
+    (the BA's normal equations accumulate in a fixed order). Drifted exact
+    maps of 16 chesslike_a frames at 60 x 80 cells, the BA on their
+    matches."""
+    from acezero_tpu_torch.reconstruct import loopclose as lc
+    from acezero_tpu_torch.reconstruct.ba import refine_poses_ba
+
+    maps, feats, w2c, focals, hw = chip_smoke.drifted_chesslike(np, 16, 8)
+    args = (torch.from_numpy(maps).to(cuda), torch.from_numpy(feats).to(cuda),
+            torch.ones(maps.shape[:3], dtype=torch.bool, device=cuda), w2c, np.full(16, 2000.0), focals, hw, 500.0)
+    runs = [lc.loop_close_core(*args) for _ in range(2)]
+    assert "skipped" not in runs[0][3]
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    data = runs[0][3]["ba_data"]
+    E = len(data["pairs"])
+    ba = [refine_poses_ba(w2c, focals, (hw[1] / 2.0, hw[0] / 2.0), data["pairs"],
+                          np.broadcast_to(data["u_src"][None], (E,) + data["u_src"].shape), data["u_tgt"], data["ok"],
+                          device=cuda) for _ in range(2)]
+    assert "skipped" not in ba[0][1] and ba[0][1]["n_tracks"] >= 64
+    assert np.array_equal(ba[0][0], ba[1][0]) and ba[0][1] == ba[1][1]
+
+
+def test_learned_depth_card_matches_cpu(cuda):
+    """The learned seed-depth estimator (v4 head, v6 encoder) on a
+    chesslike_a frame: finite positive depth at 480 x 640, and the card
+    within chip_smoke.SEEDDEPTH_CPU_TOL of the port's CPU path in log-depth
+    (cuDNN and the CPU round the bf16 convolutions' sums in other orders)."""
+    from acezero_tpu_torch.data.depth import learned_depth_estimator
+    from acezero_tpu_torch.data.images import read_rgb
+
+    img = read_rgb(chip_smoke.SCENE / "frame_0006.png")
+    d = {dev: learned_depth_estimator(chip_smoke.DEPTH_HEAD, encoder_path=chip_smoke.ENCODER, device=dev)(img)
+         for dev in (cuda, "cpu")}
+    assert d[cuda].shape == (480, 640) and np.isfinite(d[cuda]).all() and (d[cuda] > 0).all()
+    assert np.abs(np.log(d[cuda]) - np.log(d["cpu"])).max() <= chip_smoke.SEEDDEPTH_CPU_TOL
+
+
+def test_host_spill_matches_device_buffer_bit_for_bit(cuda):
+    """MappingTrainer on 8 chesslike_a frames at their shipped poses (120-pixel
+    side, batch 1,024): the host-spill buffer (pinned host rows, batches
+    streamed on a side stream) and the device buffer from one seed fill the
+    same rows and train the same bits over 60 steps, across sync groups."""
+    from acezero_tpu_torch.data.scene import load_scene
+    from acezero_tpu_torch.models import torch_io
+    from acezero_tpu_torch.models.head import HeadConfig
+    from acezero_tpu_torch.training import BufferConfig, MappingTrainer, ScheduleConfig, TrainConfig
+    from acezero_tpu_torch.training.optim import tree_leaves
+
+    s = chip_smoke.SCENE
+    scene = load_scene(str(s / "frame_000[0-7].png"), pose_files=str(s / "frame_000[0-7]_pose.txt"),
+                       external_focal_length=520.0, image_short_size=120)
+    enc = torch_io.load_encoder(chip_smoke.ENCODER, cuda)
+    out = {}
+    for spill in (False, True):
+        cfg = TrainConfig(batch_size=1024, schedule=ScheduleConfig(iterations=60), buffer_host_spill=spill,
+                          chunk_steps=7, sync_every_chunks=2)
+        trainer = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(samples_per_image=256), base_seed=5)
+        buffer = trainer.build_buffer()
+        assert (buffer["features"].device.type == "cpu") == spill and (not spill or buffer["features"].is_pinned())
+        state = trainer.train_to_budget(trainer.build_state(), buffer)[0]
+        out[spill] = ({k: v.cpu() for k, v in buffer.items()}, [t.cpu() for t in tree_leaves(state.head_params)],
+                      int(state.iteration))
+    assert all(torch.equal(out[False][0][k], out[True][0][k]) for k in out[False][0])
+    assert out[False][2] == out[True][2] == 60
+    assert all(torch.equal(a, b) for a, b in zip(out[False][1], out[True][1]))

@@ -6,12 +6,13 @@ fakes that replay a script of registration rates and loop-closure
 outcomes, and their call logs, artifact names and poses_final.txt must be
 equal, with loop closure off and on (no drift, a drift-free probe and its
 memo, drift drained by a cycle, drift not drained with the final graph
-choice); (c) the mini loop of tests/test_pipeline_e2e.py:32 (loop closure
-off, as there) through the port's CLI on the CPU and through the JAX
-pipeline on one device; (d, slow) that loop's spread over base seeds; (e)
-the branches the port leaves out raise at construction. The parallel seed
-path (early seed selection, register_frames_multi) runs for real at a tiny
-size.
+choice; learned seed depth, calibration files, point-cloud export and the
+host-spill buffer); (c) the mini loop of tests/test_pipeline_e2e.py:32 (loop
+closure off, as there) through the port's CLI on the CPU and through the
+JAX pipeline on one device; (d, slow) that loop's spread over base seeds;
+(e) the branch the port leaves out (rendering) raises at construction. The
+parallel seed path (early seed selection, register_frames_multi) runs for
+real at a tiny size.
 """
 
 import dataclasses
@@ -24,6 +25,8 @@ import pytest
 import torch
 from PIL import Image
 
+import acezero_tpu.data.depth as jdepth
+import acezero_tpu.export.point_cloud as jexport
 import acezero_tpu.reconstruct.loopclose as jlc
 import acezero_tpu.reconstruct.pipeline as jpipe
 from acezero_tpu.evalpose import evaluate_poses as j_evaluate
@@ -154,7 +157,8 @@ class _Script:
             "pose_wait": cfg.pose_refinement_wait, "refine_calibration": cfg.refine_calibration,
             "use_depth": cfg.use_depth, "initial_head": None if head_params is None else head_params["id"],
             "base_seed": base_seed, "batch": cfg.batch_size, "chunk": cfg.chunk_steps,
-            "buffer": dataclasses.astuple(buffer_cfg)[:6],
+            "buffer": dataclasses.astuple(buffer_cfg)[:6], "host_spill": cfg.buffer_host_spill,
+            "focals": [float(f) for f in scene.focals_orig],
         })
 
         class Trainer:
@@ -165,6 +169,20 @@ class _Script:
                         "focal_orig": 100.0 + script.heads if cfg.refine_calibration else None}
 
         return Trainer()
+
+    def depth(self, head_path, encoder_params=None, **_kw):
+        """A learned estimator: logs its head, then each image it sees."""
+        self.calls.append({"call": "depth_head", "head": Path(head_path).name})
+
+        def estimate(rgb):
+            self.calls.append({"call": "depth", "rgb": list(rgb.shape), "sum": int(rgb.astype(np.int64).sum())})
+            return np.full(rgb.shape[:2], 2.0)
+
+        return estimate
+
+    def export(self, path, encoder_params, head_params, head_cfg, scene, entries, dense=False, **_kw):
+        self.calls.append({"call": "export", "path": Path(path).name, "head": head_params["id"],
+                           "frames": len(entries), "dense": dense})
 
     def register(self, encoder_params, head_params, head_cfg, scene, cfg, focal_override_orig=None, **_kw):
         self.calls.append({
@@ -214,6 +232,14 @@ CASES = {
     # measurement's corrected graph becomes poses_final.txt
     "lc_final_graph": ({**LC, "adaptive_refit_max_cycles": 1, "loopclose_final_graph": True},
                        [0.3, 0.3, 0.995, 0.9, 0.95], [True, True, True]),
+    # no depth files: the learned seed-depth head (v4) on each seed frame
+    "learned_depth": ({"iterations_max": 10, "depth_files": None}, [0.3, 0.3, 0.995, 0.9]),
+    # per-frame focal files instead of an external focal
+    "calibration_files": ({"iterations_max": 10, "use_external_focal_length": -1, "calibration_files": "calib"},
+                          [0.3, 0.3, 0.995, 0.9]),
+    "export": ({"iterations_max": 10, "export_point_cloud": True, "dense_point_cloud": True},
+               [0.3, 0.3, 0.995, 0.9]),
+    "host_spill": ({"iterations_max": 10, "training_buffer_cpu": True}, [0.3, 0.3, 0.995, 0.9]),
 }
 
 
@@ -223,6 +249,9 @@ def _flow(module, lc_module, pipeline_cls, config_cls, kw, rates, drift, monkeyp
     monkeypatch.setattr(module, "register_frames", script.register)
     monkeypatch.setattr(module, "torch_io", _FakeIO)
     monkeypatch.setattr(lc_module, "loop_close_entries", script.loop_close)
+    # the JAX pipeline imports these where it calls them, the port at the top
+    monkeypatch.setattr(jdepth if module is jpipe else module, "learned_depth_estimator", script.depth)
+    monkeypatch.setattr(jexport if module is jpipe else module, "export_point_cloud_from_network", script.export)
     cfg = config_cls(**{**kw, "results_folder": folder})
     result = pipeline_cls(cfg, encoder_params={}, **init).run()
     assert not script.rates, "the script has rates left over"
@@ -239,6 +268,11 @@ def test_control_flow_matches_jax(case, scene_dir, tmp_path, monkeypatch):
           "learning_rate_warmup_iterations": 30, **over}
     if "seed_network" in over:
         kw["seed_network"] = tmp_path / "seed.pt"
+    if "calibration_files" in over:
+        (tmp_path / "calib").mkdir()
+        for i in range(N):
+            (tmp_path / "calib" / f"c{i:03d}.txt").write_text(f"{90.0 + i}\n")
+        kw["calibration_files"] = str(tmp_path / "calib" / "*.txt")
     calls_j, files_j, res_j = _flow(jpipe, jlc, JPipeline, JConfig, {**kw, **JAX_ONLY}, rates, drift, monkeypatch,
                                     tmp_path / "j")
     calls_t, files_t, res_t = _flow(tpipe, tpipe, AceZeroPipeline, AceZeroConfig, kw, rates, drift, monkeypatch,
@@ -254,6 +288,17 @@ def test_control_flow_matches_jax(case, scene_dir, tmp_path, monkeypatch):
         assert lc_calls[0]["ba"] == "off" and lc_calls[0]["max_frames"] == 2
     if case == "lc_drift_drained":
         assert refits == [987, 987] and res_t["iterations"] == 3  # both refits adopt the corrected poses
+    if case == "learned_depth":
+        heads = [c for c in calls_t if c["call"] in ("depth_head", "depth")]
+        assert heads[0] == {"call": "depth_head", "head": "tpu_depth_v4.pt"} and len(heads) == 2
+    if case == "calibration_files":
+        seed_frame = int(np.random.RandomState(kw.get("random_seed", 1305)).uniform() * N)
+        assert calls_t[0]["focals"] == [90.0 + seed_frame]  # the seed frame's own focal file
+    if case == "export":
+        assert calls_t[-1] == {"call": "export", "path": "pc_final.ply", "head": res_t["head_params"]["id"],
+                               "frames": N, "dense": True}
+    if case == "host_spill":
+        assert all(c["host_spill"] for c in calls_t if c["call"] == "train")
     if case == "lc_final_graph":
         assert "poses_iteration3_loopclosed.txt" in files_t
         assert all(float(ln.split()[5]) == 1000.0 for ln in final.splitlines())
@@ -387,11 +432,7 @@ def test_mini_loop_spread(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"depth_files": None}, "seed-depth"),
-    ({"calibration_files": "calib/*.txt"}, "calibration_files"),
-    ({"render_visualization": True}, "render_visualization"),
-    ({"export_point_cloud": True}, "export_point_cloud"),
-    ({"training_buffer_cpu": True}, "training_buffer_cpu"),
+    ({"render_visualization": True}, "render_visualization.*section 1, viz"),
 ])
 def test_left_out_branches_raise_at_construction(over, what, scene_dir, tmp_path):
     kw = {**_scene_kw(scene_dir, tmp_path / "out"), **over}

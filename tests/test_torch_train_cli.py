@@ -37,10 +37,22 @@ def test_flags_match_jax_parser():
     assert args.device == "cuda" and args.iterations == 25000 and args.batch_size == 5120
 
 
-def test_training_buffer_cpu_raises():
-    with pytest.raises(NotImplementedError, match="training_buffer_cpu"):
-        tcli.main([f"{SCENE}/frame_0000.png", "unused.pt", "--pose_files", f"{SCENE}/frame_0000_pose.txt",
-                   "--use_external_focal_length", "520", "--training_buffer_cpu", "true", "--device", "cpu"])
+def test_training_buffer_cpu_matches_device_buffer(tmp_path):
+    """--training_buffer_cpu true trains from the host-spill buffer: the same
+    rows drawn by the same generator calls, so the same head bits as the
+    device buffer (here both on the CPU)."""
+    heads = []
+    for flag in ("false", "true"):
+        out = tmp_path / f"map_{flag}.pt"
+        result = tcli.main([
+            f"{SCENE}/frame_000[0-1].png", str(out), "--pose_files", f"{SCENE}/frame_000[0-1]_pose.txt",
+            "--use_external_focal_length", "520", "--encoder_path", "weights/tpu_encoder_v6.pt",
+            "--image_resolution", "64", "--samples_per_image", "32", "--batch_size", "64", "--iterations", "6",
+            "--num_head_blocks", "0", "--training_buffer_cpu", flag, "--device", "cpu"])
+        assert result["iterations"] == 6
+        heads.append(tio.load_state_dict(out))
+    assert heads[0].keys() == heads[1].keys()
+    assert all(torch.equal(heads[0][k], heads[1][k]) for k in heads[0])
 
 
 def test_cpu_run_writes_head_and_poses(tmp_path):

@@ -229,11 +229,33 @@ def test_mini_mapping_loop_converges():
     np.testing.assert_allclose(R @ R.transpose(0, 2, 1), np.eye(3)[None], atol=1e-5)
 
 
-def test_host_spill_not_ported():
-    data = render_room_scene(1, h=24, w=32)
-    with pytest.raises(NotImplementedError, match="training_buffer_cpu"):
-        tt.MappingTrainer(_synthetic_scene(data, []), init_encoder_params(torch.Generator().manual_seed(0)),
-                          HeadConfig(), tt.TrainConfig(buffer_host_spill=True), BufferConfig())
+@pytest.mark.parametrize("use_depth,refine", [(False, "mlp"), (True, "none")])
+def test_host_spill_matches_device_buffer(use_depth, refine):
+    """buffer_host_spill keeps the buffer on the host and streams each
+    step's batch from it (a worker thread gathers ahead): from one seed it
+    fills the same rows and trains the same bits as the device buffer, over
+    two sync groups (66 steps, then 4), the first past one draw group (64
+    steps). Both run on the CPU here; tests/test_torch_cuda.py holds the
+    card."""
+    data = render_room_scene(3, h=24, w=32)
+    out = {}
+    for spill in (False, True):
+        cfg = tt.TrainConfig(batch_size=64, schedule=ScheduleConfig(iterations=70), use_depth=use_depth,
+                             pose_refinement=refine, refine_calibration=refine == "mlp", buffer_host_spill=spill,
+                             chunk_steps=33, sync_every_chunks=2)
+        trainer = tt.MappingTrainer(_synthetic_scene(data, [0] if use_depth else []),
+                                    init_encoder_params(torch.Generator().manual_seed(0)), HeadConfig(), cfg,
+                                    BufferConfig(max_buffer_size=1024, samples_per_image=128, max_dataset_passes=2),
+                                    base_seed=11)
+        buffer = trainer.build_buffer()
+        state, it, steps, _ = trainer.train_to_budget(trainer.build_state(), buffer)
+        out[spill] = (buffer, state, it, steps)
+    for k in out[False][0]:
+        assert torch.equal(out[False][0][k], out[True][0][k]), k
+    assert out[False][2:] == out[True][2:] == (70, 70)
+    for a, b in zip(to.tree_leaves((out[False][1].head_params, out[False][1].pose_params, out[False][1].focal_g)),
+                    to.tree_leaves((out[True][1].head_params, out[True][1].pose_params, out[True][1].focal_g))):
+        assert torch.equal(a, b)
 
 
 def test_frame_callback_at_every_sync():
