@@ -1,4 +1,5 @@
 from acezero_tpu_torch.io.ply import read_ply_points, write_ply_mesh, write_ply_points
+from acezero_tpu_torch.io.png import image_size, write_png
 from acezero_tpu_torch.io.pose_files import (
     PoseFileEntry,
     format_pose_line,
@@ -13,5 +14,5 @@ from acezero_tpu_torch.io.pose_files import (
 __all__ = [
     "PoseFileEntry", "format_pose_line", "get_files_from_glob", "load_focal_length",
     "load_pose_matrix", "read_pose_file", "registration_rates", "write_pose_file", "read_ply_points",
-    "write_ply_mesh", "write_ply_points",
+    "write_ply_mesh", "write_ply_points", "image_size", "write_png",
 ]

@@ -27,10 +27,14 @@ plugs in, or, as in the JAX package, from the learned seed-depth head
 (`cfg.depth_network`, else the newest shipped head in `weights/`).
 `--export_point_cloud` writes `pc_final.ply` from the final map
 (export/point_cloud.py); `--training_buffer_cpu` keeps the training buffer
-in host memory (training/trainer.py). Left out: rendering
-(`--render_visualization` raises NotImplementedError at construction).
-`prewarm` does nothing: it hides XLA compile latency, which the port does
-not have.
+in host memory (training/trainer.py). `--render_visualization` renders the
+progress video into `renderings/` (viz/): after every registration round
+(the round's point cloud, 12 relocalization frames and the state pickle
+`<iteration>_register.pkl`), one mapping frame every `iterations_output`
+steps of each main-loop round, and the final 150-frame sweep, then
+`reconstruction.mp4` when ffmpeg is present; each hook is timed as stage
+`render`, which is carved out of the stage it runs in. `prewarm` does
+nothing: it hides XLA compile latency, which the port does not have.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from acezero_tpu_torch import resolve_device
 from acezero_tpu_torch.data.depth import DepthEstimator, depth_to_canvas, learned_depth_estimator, load_depth_file
 from acezero_tpu_torch.data.images import read_rgb
 from acezero_tpu_torch.data.scene import SceneData, load_scene
-from acezero_tpu_torch.export.point_cloud import export_point_cloud_from_network
+from acezero_tpu_torch.export.point_cloud import export_point_cloud_from_network, point_cloud_from_network
 from acezero_tpu_torch.io.pose_files import PoseFileEntry, get_files_from_glob, registration_rates, write_pose_file
 from acezero_tpu_torch.models import torch_io
 from acezero_tpu_torch.models.encoder import init_encoder_params
@@ -62,6 +66,7 @@ from acezero_tpu_torch.training.loss import ReproLossConfig
 from acezero_tpu_torch.training.schedule import ScheduleConfig
 from acezero_tpu_torch.training.trainer import MappingTrainer, TrainConfig, train_hp, train_steps
 from acezero_tpu_torch.utils.profiling import stage, stage_report
+from acezero_tpu_torch.viz import ReconstructionVisualizer, VizConfig
 
 _logger = logging.getLogger(__name__)
 
@@ -72,17 +77,9 @@ SHIPPED_ENCODERS = ("tpu_encoder_v6.pt", "tpu_encoder_v5.pt", "tpu_encoder_v2.pt
 SHIPPED_DEPTH_HEADS = ("tpu_depth_v4.pt", "tpu_depth_v3.pt", "tpu_depth_v1.pt")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to acezero_tpu_torch yet (ROADMAP.md, {item})")
-
-
 class AceZeroPipeline:
     def __init__(self, cfg: AceZeroConfig, device=None, encoder_params: dict | None = None,
                  depth_estimator: DepthEstimator | None = None):
-        # the branch the port leaves out raises here, before any work
-        if cfg.render_visualization:
-            raise _not_ported("--render_visualization", "section 1, viz")
-
         self.cfg = cfg
         self.device = resolve_device(device)
         self.out = Path(cfg.results_folder)
@@ -131,6 +128,13 @@ class AceZeroPipeline:
             if depth_net is not None:
                 self.depth_estimator = learned_depth_estimator(depth_net, encoder_params=self.encoder_params)
                 _logger.info("Using learned seed-depth estimator: %s", depth_net)
+
+        self.visualizer = None
+        if cfg.render_visualization:
+            self.visualizer = ReconstructionVisualizer(
+                VizConfig(target_path=self.out / "renderings", marker_size=cfg.render_marker_size,
+                          camera_z_offset=cfg.render_camera_z_offset, conf_threshold=cfg.registration_confidence),
+                device=self.device)
         self._probe_memo = None  # see _loop_close
 
     # ------------------------------------------------------------- configs
@@ -332,7 +336,45 @@ class AceZeroPipeline:
                                       device=self.device)
         with stage("artifacts"):
             write_pose_file(self.out / f"poses_{iteration_id}.txt", entries)
+        if self.visualizer is not None:
+            self._render_round(head_params, iteration_id, entries)
         return entries
+
+    def _render_round(self, head_params: dict, iteration_id: str, entries: list[PoseFileEntry]) -> None:
+        """The visualizer's hook after a registration round: the cloud of up
+        to 64 confident frames from the current map (one K1 launch), the
+        round's registrations, 12 relocalization frames revealing the
+        queries group by group, and the state pickle."""
+        with stage("render", carve=True):
+            it_num = int(iteration_id.replace("iteration", "").split("_")[0] or 0) \
+                if iteration_id.startswith("iteration") and iteration_id[9:10].isdigit() else 0
+            confident = [e for e in entries if e.confidence >= self.cfg.registration_confidence]
+            if confident:
+                xyz, rgb = point_cloud_from_network(self.encoder_params, head_params, self.head_cfg, self.scene,
+                                                    confident[:64])
+                self.visualizer.update_point_cloud(xyz, rgb)
+            for e in entries:
+                self.visualizer.record_registration(e.rgb_file, e.confidence, it_num)
+            poses = np.stack([e.pose_c2w for e in entries])
+            confs = np.asarray([e.confidence for e in entries])
+            n = len(entries)
+            shown = 0
+            for g in np.array_split(np.arange(n), min(12, n)):
+                shown += len(g)
+                self.visualizer.render_reloc_frame(poses[:shown], confs[:shown],
+                                                   caption=f"{iteration_id}: {shown}/{n} images queried")
+            self.visualizer.save_state(self.out / "renderings" / f"{iteration_id}_register.pkl")
+
+    def _mapping_frame_callback(self, iteration_id: str, max_it: int):
+        """The trainer's frame callback of a main-loop round: one mapping
+        frame of the refined cameras."""
+        def frame_cb(it, poses_w2c):
+            with stage("render", carve=True):
+                bottom = np.tile([[[0, 0, 0, 1.0]]], (len(poses_w2c), 1, 1))
+                c2w = np.linalg.inv(np.concatenate([poses_w2c, bottom], axis=1))
+                self.visualizer.render_mapping_frame(c2w, caption=f"{iteration_id} · step {it}",
+                                                     progress=it / max(max_it, 1))
+        return frame_cb
 
     def _loop_close(self, entries: list[PoseFileEntry], head_params: dict,
                     focal_estimate: float | None) -> tuple[list[PoseFileEntry], dict]:
@@ -419,10 +461,11 @@ class AceZeroPipeline:
         return sub
 
     def _train(self, mapping_scene: SceneData, train_cfg: TrainConfig, init_head: dict | None,
-               base_seed: int) -> dict:
+               base_seed: int, frame_callback=None) -> dict:
         with stage("mapping", trace=True):
             trainer = MappingTrainer(mapping_scene, self.encoder_params, self.head_cfg, train_cfg,
-                                     self._buffer_cfg(), head_params=init_head, base_seed=base_seed)
+                                     self._buffer_cfg(), head_params=init_head, base_seed=base_seed,
+                                     frame_callback=frame_callback)
             return trainer.train()
 
     def run(self) -> dict:
@@ -474,7 +517,10 @@ class AceZeroPipeline:
                 train_cfg = self._base_train_cfg(cfg.iterations, use_depth=False, refine=True)
                 warm = cfg.warmstart and (iteration > 1 or cfg.seed_network is not None)
                 init_head = head_params if warm else None
-            result = self._train(mapping_scene, train_cfg, init_head, cfg.base_seed)
+            frame_cb = None
+            if self.visualizer is not None:
+                frame_cb = self._mapping_frame_callback(iteration_id, train_cfg.schedule.iterations)
+            result = self._train(mapping_scene, train_cfg, init_head, cfg.base_seed, frame_cb)
             head_params = result["head_params"]
             with stage("artifacts"):
                 torch_io.save_head(self.out / f"{iteration_id}.pt", head_params, self.head_cfg)
@@ -564,6 +610,15 @@ class AceZeroPipeline:
                     write_pose_file(self.out / f"poses_{iteration_id}.txt", entries)
 
         # ------------------------- outputs --------------------------------
+        if self.visualizer is not None:
+            _logger.info("Rendering final sweep.")
+            with stage("render", carve=True):
+                poses = np.stack([e.pose_c2w for e in entries])
+                first_it = np.asarray([self.visualizer.registration_history.get(e.rgb_file, iteration)
+                                       for e in entries], np.float32)
+                self.visualizer.render_final_sweep(poses, first_it)
+                self.visualizer.to_video(self.out / "reconstruction.mp4")
+
         total_time = time.time() - t_start
         shutil.copy(self.out / f"poses_{iteration_id}.txt", self.out / "poses_final.txt")
         rates = registration_rates([e.confidence for e in entries], [500, 1000, 2000, 4000])

@@ -43,18 +43,31 @@ def _trace(path: str):
     prof.export_chrome_trace(os.path.join(path, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json"))
 
 
+_OPEN: list[list[float]] = []  # seconds carved out of each open stage, innermost last
+
+
 @contextlib.contextmanager
-def stage(name: str, trace: bool = False):
-    """Time a pipeline stage; optionally capture a device trace of it."""
+def stage(name: str, trace: bool = False, carve: bool = False):
+    """Time a pipeline stage; optionally capture a device trace of it. A
+    stage with `carve` is taken out of the stages it runs inside (the
+    render hook inside `mapping`); other nested stages count in both."""
     trace_dir = os.environ.get("ACEZERO_TRACE_DIR")
     ctx = _trace(os.path.join(trace_dir, name)) if trace and trace_dir else contextlib.nullcontext()
     _sync()
     t0 = time.time()
-    with ctx:
-        yield
-    _sync()
+    carved = [0.0]
+    _OPEN.append(carved)
+    try:
+        with ctx:
+            yield
+        _sync()
+    finally:
+        _OPEN.pop()
     dt = time.time() - t0
-    _STAGE_TOTALS[name] += dt
+    if carve:
+        for outer in _OPEN:
+            outer[0] += dt
+    _STAGE_TOTALS[name] += dt - carved[0]
     _STAGE_COUNTS[name] += 1
     _logger.debug("stage %s: %.2fs", name, dt)
 

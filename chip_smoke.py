@@ -60,19 +60,34 @@ Phases:
               card against the port's CPU path (max |d log-depth|)
  10 bare      the reconstruction CLI as a user runs it on a bare image glob:
               no depth files (the learned seed-depth head), per-frame
-              calibration files, loop closure on, --export_point_cloud, at
-              full width and phase pipeline's cut budgets; counts zeroed just
-              before and read just after; the rate at confidence 500 must
-              reach BARE_SHARE and pc_final.ply must hold points; scene_load
-              reads the decode cache phase pipeline filled
- 11 spill     MappingTrainer on the shipped poses at full width, the device
+              calibration files, loop closure on, --export_point_cloud and
+              --render_visualization, at full width and phase pipeline's cut
+              budgets; counts zeroed just before and read just after; the
+              rate at confidence 500 must reach BARE_SHARE, pc_final.ply
+              must hold points, the video's frames (12 relocalization frames
+              a registration, the mapping frames, the 150-frame sweep) must
+              decode to 720 x 1280 x 3 and show the scene; each frame's
+              pan camera, device render, overlays and PNG write are timed;
+              scene_load reads the decode cache phase pipeline filled
+ 11 render    the outputs of phase bare's folder (which it brings along):
+              the renderer on the card against the CPU on the last
+              visualizer state (RENDER_PIXEL_SHARE, and the same bits twice),
+              the final-sweep CLI, export_cli point_cloud from the
+              visualizer buffer (the pickle's cloud bit for bit) and from
+              the network (K1), export_cli cameras, the Nerfstudio
+              transforms.json and the runner's missing-CLI error, and
+              Regressor.forward against the export's predict_coords bit for
+              bit; counts zeroed just before each main-path call and read
+              just after
+ 12 spill     MappingTrainer on the shipped poses at full width, the device
               buffer against the host-spill buffer (--training_buffer_cpu)
               from one seed: equal fills and bit-equal parameters after
               SPILL_STEPS[0] steps, then SPILL_STEPS[1] steps of each timed
- 12 report    one JSON line describing every kernel, then the card's
+ 13 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
-Phase `device` always runs (it turns TF32 off for the comparisons). With a
+Phase `device` always runs (it turns TF32 off for the comparisons), and
+phase `render` brings phase `bare`, whose output it reads. With a
 subset the report carries null for what the skipped phases measure, and the
 status line is printed all the same.
 """
@@ -80,6 +95,7 @@ status line is printed all the same.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import glob
 import json
@@ -99,7 +115,7 @@ HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
 PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
-          "seeddepth", "bare", "spill", "report")
+          "seeddepth", "bare", "render", "spill", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -228,6 +244,18 @@ SEEDDEPTH_CPU_TOL = 0.03
 # frames under it
 BARE_JAX_RATE = 19 / 60
 BARE_SHARE = 16 / 60
+# the video of phase bare: 12 relocalization frames a registration round
+# (of at least 12 frames), the final orbit, frames at the visualizer's size
+RELOC_FRAMES = 12
+SWEEP_FRAMES = 150
+FRAME_SHAPE = (720, 1280, 3)
+# phase render: the card's frame against the CPU's, the share of pixels that
+# may differ (a projection rounded differently moves a point at a pixel
+# edge by one pixel; tests/test_torch_viz.py holds the CPU to the JAX
+# package at the same share), and the frames Regressor.forward runs
+RENDER_PIXEL_SHARE = 1e-3
+REGRESSOR_FRAMES = 8
+EXPORT_CONF = 500  # export_cli --network takes the frames registered at the pipeline's confidence bar
 # phase spill: steps held bit for bit, then steps timed with each buffer
 SPILL_STEPS = (200, 500)
 FRAMES = "frame_*.png"
@@ -431,6 +459,31 @@ def k1_shapes(fh, into: list):
         fh.fused_head_chain = real
 
 
+def mapping_frames(iterations: int, chunk: int, every: int) -> int:
+    """The mapping frames of a round that ran `iterations` steps: the
+    trainer calls its frame callback at a chunk boundary `every` steps past
+    its last call, and at the end."""
+    it = last = frames = 0
+    while it < iterations:
+        it = min(it + chunk, iterations)
+        if it - last >= every or it >= iterations:
+            frames, last = frames + 1, it
+    return frames
+
+
+def ply_header_counts(path) -> dict:
+    """{element: count} of a PLY file's header."""
+    counts = {}
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"element "):
+                _, name, n = line.split()
+                counts[name.decode()] = int(n)
+            if line.strip() == b"end_header":
+                break
+    return counts
+
+
 def rot_err_deg(np, Ra, Rb) -> float:
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1) / 2, -1, 1))))
 
@@ -535,8 +588,9 @@ def card_vs_cpu(np, card, cpu):
 
 
 def parse_phases(argv) -> list[str]:
-    """The phases to run, in PHASES order, `device` always among them. An
-    unknown name is an error (argparse exits with status 2)."""
+    """The phases to run, in PHASES order, `device` always among them and
+    `bare` whenever `render` is (it reads bare's output). An unknown name
+    is an error (argparse exits with status 2)."""
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
@@ -545,6 +599,8 @@ def parse_phases(argv) -> list[str]:
     unknown = sorted(names - set(PHASES))
     if unknown or not names:
         ap.error(f"unknown phase(s) {unknown}; choose from {','.join(PHASES)}")
+    if "render" in names:
+        names.add("bare")
     return [p for p in PHASES if p in names or p == "device"]
 
 
@@ -577,7 +633,14 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.registration.driver import _canvas_prologue
     from acezero_tpu_torch.registration.ransac import RansacConfig, estimate_poses_batch
     from acezero_tpu_torch.data.depth import learned_depth_estimator
-    from acezero_tpu_torch.data.images import read_rgb
+    from acezero_tpu_torch.data.images import decode_to_canvas, read_png, read_rgb
+    from acezero_tpu_torch.data.augment import normalize_images
+    from acezero_tpu_torch.cli import export_cli, render_final_sweep_cli
+    from acezero_tpu_torch.export import nerf, nerfstudio_runner
+    from acezero_tpu_torch.export.point_cloud import predict_coords
+    from acezero_tpu_torch.models import Regressor
+    from acezero_tpu_torch.viz import ReconstructionVisualizer, VizConfig
+    from acezero_tpu_torch.viz.renderer import composite_frame, render_cameras, render_point_cloud
     from acezero_tpu_torch.data.scene import load_scene
     from acezero_tpu_torch.io.ply import read_ply_points
     from acezero_tpu_torch.training.optim import tree_leaves
@@ -587,6 +650,8 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # outputs that one phase hands to a later one
+    atexit.register(shutil.rmtree, work, True)
     with phase("device", {}) as rec:
         rec.update(kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
                    torch=torch.__version__, cuda=torch.version.cuda,
@@ -1183,13 +1248,16 @@ def main(argv=None) -> int:
             require(dlog <= SEEDDEPTH_CPU_TOL, f"card and CPU log-depth differ by {dlog} > {SEEDDEPTH_CPU_TOL}")
 
     bare_launches = None  # launch counts of phase bare
+    bare_out = None  # phase bare's output folder, read by phase render
     if "bare" in phases:
         with phase("bare", {}) as rec:
             rec.update(kind=kind, nvidia_smi=smi, cuts={**PIPELINE_CUTS, **PIPELINE_OVERRIDES}, floor=BARE_SHARE,
                        jax_cpu_rate=BARE_JAX_RATE)
             flags = [f"--{k}={v}" for k, v in PIPELINE_CUTS.items()]
-            heads, export_shapes, export_seconds = [], [], []
+            heads, export_shapes, export_seconds, render_shapes, visualizers, rounds = [], [], [], [], [], []
             real_lde, real_export = tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network
+            real_cloud, real_viz, real_train = (tpipe.point_cloud_from_network, tpipe.ReconstructionVisualizer,
+                                                tpipe.AceZeroPipeline._train)
 
             def recorded_lde(head_path, *a, **k):
                 heads.append(Path(head_path).name)
@@ -1202,34 +1270,70 @@ def main(argv=None) -> int:
                 export_seconds.append(synced_clock(torch) - t0)
                 return out
 
-            with tempfile.TemporaryDirectory() as tmp:
-                # one focal file per frame, from the scene's focal_length.txt
-                focal = (SCENE / "focal_length.txt").read_text().strip()
-                (Path(tmp) / "calib").mkdir()
-                for f in sorted(glob.glob(str(SCENE / FRAMES))):
-                    (Path(tmp) / "calib" / (Path(f).stem + ".txt")).write_text(focal + "\n")
-                out_dir = Path(tmp) / "out"
-                argv = [str(SCENE / FRAMES), str(out_dir), "--calibration_files", str(Path(tmp) / "calib" / "*.txt"),
-                        "--encoder_path", str(ENCODER), "--export_point_cloud", "true", *flags, "--device", DEVICE]
-                profiling.reset_stages()
-                tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network = recorded_lde, recorded_export
-                try:
-                    fh.LAUNCHES = fh.LAUNCHES_BWD = 0
-                    t0 = time.perf_counter()
-                    result = ace_zero_cli.main(argv, **PIPELINE_OVERRIDES)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    bare_launches = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD, "export_shapes": export_shapes}
-                finally:
-                    tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network = real_lde, real_export
-                lines = (out_dir / "poses_final.txt").read_text().splitlines()
-                entries = read_pose_file(out_dir / "poses_final.txt")
-                xyz, rgb = read_ply_points(out_dir / "pc_final.ply")
-                artifacts = sorted(p_.name for p_ in out_dir.iterdir())
+            def recorded_cloud(*a, **k):  # the render hook's point cloud
+                with k1_shapes(fh, render_shapes):
+                    return real_cloud(*a, **k)
+
+            def recorded_viz(*a, **k):
+                visualizers.append(real_viz(*a, **k))
+                return visualizers[-1]
+
+            def recorded_train(self, scene, train_cfg, init_head, base_seed, frame_callback=None):
+                result = real_train(self, scene, train_cfg, init_head, base_seed, frame_callback)
+                if frame_callback is not None:
+                    rounds.append((result["iterations"], train_cfg.chunk_steps, train_cfg.iterations_output))
+                return result
+
+            # the output folder outlives the phase: phase render reads it
+            tmp = Path(work) / "bare"
+            # one focal file per frame, from the scene's focal_length.txt
+            focal = (SCENE / "focal_length.txt").read_text().strip()
+            (tmp / "calib").mkdir(parents=True)
+            for f in sorted(glob.glob(str(SCENE / FRAMES))):
+                (tmp / "calib" / (Path(f).stem + ".txt")).write_text(focal + "\n")
+            out_dir = tmp / "out"
+            argv = [str(SCENE / FRAMES), str(out_dir), "--calibration_files", str(tmp / "calib" / "*.txt"),
+                    "--encoder_path", str(ENCODER), "--export_point_cloud", "true", "--render_visualization", "true",
+                    *flags, "--device", DEVICE]
+            profiling.reset_stages()
+            tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network = recorded_lde, recorded_export
+            tpipe.point_cloud_from_network, tpipe.ReconstructionVisualizer = recorded_cloud, recorded_viz
+            tpipe.AceZeroPipeline._train = recorded_train
+            try:
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = time.perf_counter()
+                result = ace_zero_cli.main(argv, **PIPELINE_OVERRIDES)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                bare_launches = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD, "export_shapes": export_shapes,
+                                 "render_shapes": render_shapes}
+            finally:
+                tpipe.learned_depth_estimator, tpipe.export_point_cloud_from_network = real_lde, real_export
+                tpipe.point_cloud_from_network, tpipe.ReconstructionVisualizer = real_cloud, real_viz
+                tpipe.AceZeroPipeline._train = real_train
+            lines = (out_dir / "poses_final.txt").read_text().splitlines()
+            entries = read_pose_file(out_dir / "poses_final.txt")
+            xyz, rgb = read_ply_points(out_dir / "pc_final.ply")
+            artifacts = sorted(p_.name for p_ in out_dir.iterdir())
             gts = [np.loadtxt(f[: -len(".png")] + "_pose.txt") for f in sorted(glob.glob(str(SCENE / FRAMES)))]
             errors = evaluate_poses(entries, gts)
             rates = registration_rates([e.confidence for e in entries], [500, 1000, 2000, 4000])
             totals = profiling.stage_totals()
+
+            # the video
+            renders = out_dir / "renderings"
+            frames = sorted(renders.glob("frame_*.png"))
+            decoded, shown = 0, 0
+            for f in frames:
+                img = read_png(f)
+                decoded += img.shape == FRAME_SHAPE
+                shown += img.shape == FRAME_SHAPE and bool((img[200:-200] != 255).any())
+            viz = visualizers[0] if visualizers else None
+            registrations = totals.get("registration", (0, 0))[1]
+            expected = {"reloc": RELOC_FRAMES * registrations, "sweep": SWEEP_FRAMES,
+                        "mapping": sum(mapping_frames(*r) for r in rounds)}
+            per_frame = {part: {"median_ms": statistics.median(v) * 1e3 if v else None, "total_s": sum(v)}
+                         for part, v in (viz.frame_seconds.items() if viz else ())}
             rec.update(
                 wall_seconds=wall, stage_seconds={k: v[0] for k, v in totals.items()},
                 stage_calls={k: v[1] for k, v in totals.items()}, depth_heads=heads,
@@ -1241,7 +1345,15 @@ def main(argv=None) -> int:
                 median_trans_cm=errors.median_trans_cm, fused_head_fwd_launches=bare_launches["fwd"],
                 fused_head_bwd_launches=bare_launches["bwd"], export_fused_head_fwd_shapes=export_shapes,
                 export_seconds=export_seconds, ply_points=int(len(xyz)),
-                ply_finite=bool(np.isfinite(xyz).all()), report=result["report"])
+                ply_finite=bool(np.isfinite(xyz).all()), report=result["report"],
+                frames_by_kind=viz.frames_by_kind if viz else None, frames_expected=expected,
+                mapping_rounds=[list(r) for r in rounds], frames_written=len(frames), frames_decoded=decoded,
+                frames_showing_the_scene=shown, register_pickles=sorted(p_.name for p_ in renders.glob("*.pkl")),
+                frame_seconds=per_frame, render_fused_head_fwd_shapes=render_shapes,
+                render_stage_seconds=totals.get("render", (None,))[0],
+                cloud_points=int(len(viz.cloud_xyz)) if viz else None,
+                renderings_bytes=sum(p_.stat().st_size for p_ in renders.iterdir()),
+                ffmpeg=shutil.which("ffmpeg"), video_written=(out_dir / "reconstruction.mp4").exists())
             require(heads == [DEPTH_HEAD.name], f"the run did not seed from the learned head {DEPTH_HEAD.name}: {heads}")
             require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
                     f"poses_final.txt is not {N_FRAMES} lines of 10 tokens")
@@ -1252,6 +1364,147 @@ def main(argv=None) -> int:
                     f"pc_final.ply holds {len(xyz)} points")
             require(rates[0] >= BARE_SHARE,
                     f"the bare run registered {rates[0]:.1%} of the frames at confidence 500 (floor {BARE_SHARE:.1%})")
+            require(viz is not None and viz.frames_by_kind["sweep"] == SWEEP_FRAMES
+                    and viz.frames_by_kind["reloc"] == expected["reloc"],
+                    f"frames {rec['frames_by_kind']}, expected {expected}")
+            require(len(frames) == sum(viz.frames_by_kind.values()) == decoded == shown,
+                    f"{len(frames)} frames, {decoded} decode to {FRAME_SHAPE}, {shown} show the scene")
+            require(len(rec["register_pickles"]) == registrations and len(render_shapes) > 0,
+                    f"pickles {rec['register_pickles']}, render-hook K1 launches {render_shapes}")
+            bare_out = out_dir
+
+    render_launches = None  # launch counts of phase render's main-path calls
+    if "render" in phases:
+        with phase("render", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi, pixel_share=RENDER_PIXEL_SHARE)
+            renders = bare_out / "renderings"
+            states = sorted(renders.glob("iteration*_register.pkl"), key=lambda p_: int(p_.name[9:].split("_")[0]))
+            entries = read_pose_file(bare_out / "poses_final.txt")
+            poses = np.stack([e.pose_c2w for e in entries])
+            confs = np.asarray([e.confidence for e in entries])
+            render_launches = {}
+
+            # 1. the renderer on the card against the CPU, on the last state's
+            # cloud, from the orbit camera, with the cameras
+            viz = ReconstructionVisualizer(VizConfig(target_path=Path(work) / "render_check"), device=DEVICE)
+            viz.load_state(states[-1])
+            view = viz._pan_camera(0.02 * viz.frame_idx)
+            cam_xyz, cam_rgb = render_cameras(poses, np.tile([[0.9, 0.2, 0.1]], (len(poses), 1)), view,
+                                              viz.cfg.focal, *FRAME_SHAPE[:2], viz.cfg.marker_size)
+            xyz = np.concatenate([viz.cloud_xyz, cam_xyz])
+            rgb = np.concatenate([viz.cloud_rgb, cam_rgb])
+            xyz_d, rgb_d = torch.from_numpy(xyz).to(DEVICE), torch.from_numpy(rgb).to(DEVICE)
+            empty = np.zeros((0, 3), np.float32)
+            card = [composite_frame(xyz_d, rgb_d, empty, empty, view, viz.cfg.focal, *FRAME_SHAPE[:2])
+                    for _ in range(2)]
+            cpu = composite_frame(xyz, rgb, empty, empty, view, viz.cfg.focal, *FRAME_SHAPE[:2], device="cpu")
+            differ = float(np.any(card[0] != cpu, axis=-1).mean())
+            device_ms = time_ms(lambda: render_point_cloud(xyz_d, rgb_d, view, viz.cfg.focal, *FRAME_SHAPE[:2]),
+                                torch)
+            frame_ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                composite_frame(xyz_d, rgb_d, empty, empty, view, viz.cfg.focal, *FRAME_SHAPE[:2])
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                composite_frame(xyz, rgb, empty, empty, view, viz.cfg.focal, *FRAME_SHAPE[:2], device="cpu")
+                cpu_ms.append((time.perf_counter() - t0) * 1e3)
+            rec["renderer"] = {"state": states[-1].name, "points": int(len(xyz)), "pixels_differing_share": differ,
+                               "card_repeats_bit_for_bit": bool(np.array_equal(card[0], card[1])),
+                               "device_ms": device_ms, "frame_ms_with_download": statistics.median(frame_ms),
+                               "cpu_ms": statistics.median(cpu_ms), "background_share":
+                                   float(np.all(card[0] == 255, axis=-1).mean())}
+            require(differ <= RENDER_PIXEL_SHARE, f"card and CPU frames differ in {differ:.4%} of the pixels")
+            require(rec["renderer"]["card_repeats_bit_for_bit"], "the card's frame changed between two renders")
+
+            # 2. the final-sweep CLI on bare's renderings; it numbers its frames
+            # from the last state's frame index on, as the JAX package's does
+            t0, t0_ns = time.perf_counter(), time.time_ns()
+            require(render_final_sweep_cli.main([str(renders), "--num_frames", str(SWEEP_FRAMES), "--device",
+                                                 DEVICE]) == 0,
+                    "render_final_sweep_cli failed")
+            written = [p_ for p_ in renders.glob("frame_*.png") if p_.stat().st_mtime_ns >= t0_ns]
+            rec["sweep_cli"] = {"seconds": time.perf_counter() - t0, "frames": len(written),
+                                "first_frame": min(p_.name for p_ in written) if written else None}
+            require(len(written) == SWEEP_FRAMES and all(read_png(p_).shape == FRAME_SHAPE for p_ in written[:3]),
+                    f"the sweep CLI wrote {len(written)} frames")
+
+            # 3. export_cli from the visualizer buffer: the pickle's cloud as it is
+            out = Path(work) / "render"
+            out.mkdir()
+            t0 = time.perf_counter()
+            require(export_cli.main(["point_cloud", str(out / "buffer.ply"), "--visualization_buffer",
+                                     str(states[-1])]) == 0, "export_cli --visualization_buffer failed")
+            b_xyz, b_rgb = read_ply_points(out / "buffer.ply")
+            want_rgb = (viz.cloud_rgb * 255).clip(0, 255).astype(np.uint8)
+            rec["buffer_export"] = {"seconds": time.perf_counter() - t0, "points": int(len(b_xyz)),
+                                    "bit_equal": bool(np.array_equal(b_xyz, viz.cloud_xyz)
+                                                      and np.array_equal(b_rgb, want_rgb))}
+            require(rec["buffer_export"]["bit_equal"], "the buffer PLY is not the pickle's cloud")
+
+            # 4. export_cli from the network: bare's final head, K1 on the card
+            final_head = max(bare_out.glob("iteration[0-9]*.pt"), key=lambda p_: int(p_.stem[9:].split("_")[0]))
+            shapes = []
+            with k1_shapes(fh, shapes):
+                fh.LAUNCHES = 0
+                t0 = synced_clock(torch)
+                require(export_cli.main(["point_cloud", str(out / "network.ply"), "--network", str(final_head),
+                                         "--pose_file", str(bare_out / "poses_final.txt"), "--encoder_path",
+                                         str(ENCODER), "--pose_file_conf_threshold", str(EXPORT_CONF), "--device",
+                                         DEVICE]) == 0,
+                        "export_cli --network failed")
+                n_xyz, _ = read_ply_points(out / "network.ply")
+                render_launches["export_cli"] = fh.LAUNCHES
+            rec["network_export"] = {"head": final_head.name, "seconds": synced_clock(torch) - t0,
+                                     "points": int(len(n_xyz)), "finite": bool(np.isfinite(n_xyz).all()),
+                                     "fused_head_fwd_launches": render_launches["export_cli"],
+                                     "fused_head_fwd_shapes": shapes}
+            require(len(n_xyz) > 0 and rec["network_export"]["finite"] and render_launches["export_cli"] > 0,
+                    f"the network export: {rec['network_export']}")
+
+            # 5. camera meshes
+            require(export_cli.main(["cameras", str(bare_out / "poses_final.txt"), str(out / "cameras.ply")]) == 0,
+                    "export_cli cameras failed")
+            rec["cameras"] = ply_header_counts(out / "cameras.ply")
+            require(rec["cameras"] == {"vertex": 5 * N_FRAMES, "face": 6 * N_FRAMES}, f"cameras {rec['cameras']}")
+
+            # 6. the Nerfstudio export, and the runner without Nerfstudio
+            transforms = json.loads(nerf.export_transforms_json(bare_out / "poses_final.txt", str(SCENE / FRAMES),
+                                                                out / "nerf").read_text())
+            test_want = [f for i, f in enumerate(sorted(glob.glob(str(SCENE / FRAMES)))) if i % 8 == 4]
+            rec["nerfstudio"] = {"frames": len(transforms["frames"]), "train": len(transforms["train_filenames"]),
+                                 "test": len(transforms["test_filenames"]),
+                                 "point_cloud": transforms.get("ply_file_path"), "ns_train": shutil.which("ns-train")}
+            require(len(transforms["frames"]) == N_FRAMES and transforms["test_filenames"] == test_want
+                    and (out / "nerf" / "pc_final.ply").read_bytes() == (bare_out / "pc_final.ply").read_bytes(),
+                    f"transforms.json: {rec['nerfstudio']}")
+            if rec["nerfstudio"]["ns_train"] is None:
+                try:
+                    nerfstudio_runner.run_benchmark(bare_out / "poses_final.txt", str(SCENE / FRAMES), out / "bench")
+                    raise AssertionError("run_benchmark ran without ns-train")
+                except RuntimeError as exc:
+                    rec["nerfstudio"]["runner_error"] = str(exc)[:200]
+                    require("ns-train" in str(exc), f"the runner's error does not name ns-train: {exc}")
+
+            # 7. Regressor against the export path, one K1 launch each
+            files = sorted(glob.glob(str(SCENE / FRAMES)))[:REGRESSOR_FRAMES]
+            canvases = decode_to_canvas(files, short_size=480).canvases
+            reg = Regressor.create_from_split_state_dict(ENCODER, final_head, device=DEVICE)
+            shapes = []
+            with k1_shapes(fh, shapes):
+                fh.LAUNCHES = 0
+                want = predict_coords(reg.encoder_params, reg.head_params, reg.head_cfg, canvases)
+                with torch.inference_mode():
+                    got = reg.forward(normalize_images(torch.from_numpy(canvases).to(DEVICE))).cpu().numpy()
+                render_launches["regressor"] = fh.LAUNCHES
+            rec["regressor"] = {"frames": len(files), "shape": list(got.shape), "bit_equal": bool(
+                np.array_equal(got, want)), "fused_head_fwd_launches": render_launches["regressor"],
+                "fused_head_fwd_shapes": shapes}
+            require(rec["regressor"]["bit_equal"] and np.isfinite(got).all() and render_launches["regressor"] == 2,
+                    f"Regressor against predict_coords: {rec['regressor']}")
+            render_launches["shapes"] = rec["network_export"]["fused_head_fwd_shapes"] + shapes
 
     spill_launches = None  # launch counts of phase spill
     if "spill" in phases:
@@ -1321,22 +1574,31 @@ def main(argv=None) -> int:
             pipe_bwd = pipe_launches["bwd"] if pipe_launches else 0
             bare_fwd, bare_bwd = (bare_launches["fwd"], bare_launches["bwd"]) if bare_launches else (0, 0)
             spill_fwd, spill_bwd = (spill_launches["fwd"], spill_launches["bwd"]) if spill_launches else (0, 0)
+            render_fwd = render_launches["export_cli"] + render_launches["regressor"] if render_launches else 0
             emit(kernels=[{
                 "name": "fused_head_fwd",
                 "route": "cuda",
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:108",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-                "launches": (launches or 0) + fwd + (lc_launches or 0) + pipe_fwd + bare_fwd + spill_fwd,
+                "launches": (launches or 0) + fwd + (lc_launches or 0) + pipe_fwd + bare_fwd + render_fwd + spill_fwd,
                 "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None,
                                      "loopclose": lc_launches, "pipeline": pipe_fwd if pipe_launches else None,
                                      "pipeline_loop_closure": pipe_lc, "bare": bare_fwd if bare_launches else None,
+                                     "bare_render_hooks": (len(bare_launches["render_shapes"]) if bare_launches
+                                                           else None),
+                                     "render": render_fwd if render_launches else None,
                                      "spill": spill_fwd if spill_launches else None},
                 # [B, L] of each loop-closure launch, recorded where it was made
                 "loop_closure_shapes": {"loopclose": lc_shapes,
                                         "pipeline": pipe_launches["loop_closure_shapes"] if pipe_launches else None},
                 # [B, L] of each launch of phase bare's point-cloud export
                 "export_shapes": bare_launches["export_shapes"] if bare_launches else None,
+                # [B, L] of each launch of phase bare's render hooks (one point
+                # cloud a registration round), and of phase render's
+                # export_cli --network and Regressor runs
+                "render_hook_shapes": bare_launches["render_shapes"] if bare_launches else None,
+                "render_shapes": render_launches["shapes"] if render_launches else None,
                 **pick(k1_reg, *fields),
                 "ms": k1_reg.get("kernel_ms"),
                 "shape": pick(k1_reg, "B", "L"),
@@ -1358,6 +1620,7 @@ def main(argv=None) -> int:
                                      "loopclose": 0 if lc_launches is not None else None,
                                      "pipeline": pipe_bwd if pipe_launches else None,
                                      "bare": bare_bwd if bare_launches else None,
+                                     "render": 0 if render_launches else None,
                                      "spill": spill_bwd if spill_launches else None},
                 **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),
                 "ms": k2_map.get("kernel_ms"),

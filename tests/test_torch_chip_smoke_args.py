@@ -1,5 +1,6 @@
 """chip_smoke.py's --phases argument: every phase by default, a subset in
-the script's own order with `device` always first, an unknown name refused.
+the script's own order with `device` always first and `bare` whenever
+`render` is asked for, an unknown name refused.
 The script imports only the standard library at module level, so this runs
 without a card."""
 
@@ -25,6 +26,9 @@ def test_default_runs_every_phase():
     ("pipeline,loopclose,mapping", ["device", "mapping", "loopclose", "pipeline"]),
     ("report,spill,bare,seeddepth,pipeline", ["device", "pipeline", "seeddepth", "bare", "spill", "report"]),
     ("spill", ["device", "spill"]),
+    ("render", ["device", "bare", "render"]),
+    ("report,render,build", ["device", "build", "bare", "render", "report"]),
+    ("bare", ["device", "bare"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -124,15 +128,41 @@ def test_core_with_fits_reads_every_selected_pair():
 
 
 def test_new_phases_after_pipeline_in_order():
-    """seeddepth, bare and spill run after pipeline (bare reads the decode
-    cache pipeline filled) and before report; bare reuses pipeline's cut
-    budgets, its floor sits three frames of 60 under the JAX package's rate,
-    and seeddepth holds the JAX package's statistics within 0.01."""
+    """seeddepth, bare, render and spill run after pipeline (bare reads the
+    decode cache pipeline filled, render reads bare's output) and before
+    report; bare reuses pipeline's cut budgets, its floor sits three frames
+    of 60 under the JAX package's rate, and seeddepth holds the JAX
+    package's statistics within 0.01."""
     phases = list(chip_smoke.PHASES)
-    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "spill", "report"]
+    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "spill", "report"]
     n = chip_smoke.N_FRAMES
     assert round(chip_smoke.BARE_SHARE * n) == round(chip_smoke.BARE_JAX_RATE * n) - 3 == 16
     assert chip_smoke.BARE_SHARE == 16 / n  # a frame count: 16 registered frames reach it exactly
     assert chip_smoke.SEEDDEPTH_TOL == 0.01 and set(chip_smoke.SEEDDEPTH_JAX) == {"raw_rel", "shape_rel", "scale_cv"}
     assert chip_smoke.SEEDDEPTH_STRIDE == 6 and chip_smoke.DEPTH_HEAD.name == "tpu_depth_v4.pt"
     assert chip_smoke.SPILL_STEPS == (200, 500)
+
+
+def test_render_phase_constants():
+    """Phase bare's video: 12 relocalization frames a registration and the
+    150-frame sweep at 720 x 1280; phase render holds the card's frame to
+    the CPU's at 0.1% of the pixels, as tests/test_torch_viz.py holds the
+    CPU to the JAX package."""
+    assert (chip_smoke.RELOC_FRAMES, chip_smoke.SWEEP_FRAMES, chip_smoke.FRAME_SHAPE) == (12, 150, (720, 1280, 3))
+    assert chip_smoke.RENDER_PIXEL_SHARE == 1e-3 and chip_smoke.REGRESSOR_FRAMES == 8
+    assert chip_smoke.EXPORT_CONF == 500
+
+
+@pytest.mark.parametrize("iterations,chunk,every,want", [
+    (2000, 100, 500, 4), (1800, 100, 500, 4), (30, 10, 10, 3), (654, 100, 500, 2), (499, 100, 500, 1)])
+def test_mapping_frames_follow_the_trainer_cadence(iterations, chunk, every, want):
+    assert chip_smoke.mapping_frames(iterations, chunk, every) == want
+
+
+def test_ply_header_counts(tmp_path):
+    import numpy as np
+
+    from acezero_tpu_torch.io.ply import write_ply_mesh
+
+    write_ply_mesh(tmp_path / "m.ply", np.zeros((10, 3)), np.zeros((12, 3), np.int64), np.zeros((10, 3)))
+    assert chip_smoke.ply_header_counts(tmp_path / "m.ply") == {"vertex": 10, "face": 12}

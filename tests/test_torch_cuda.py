@@ -225,3 +225,41 @@ def test_host_spill_matches_device_buffer_bit_for_bit(cuda):
     assert all(torch.equal(out[False][0][k], out[True][0][k]) for k in out[False][0])
     assert out[False][2] == out[True][2] == 60
     assert all(torch.equal(a, b) for a, b in zip(out[False][1], out[True][1]))
+
+
+def test_renderer_card_matches_cpu_and_repeats(cuda):
+    """The splat renderer at 720 x 1280 on 300,000 points: the card within
+    0.1% of the CPU's pixels, and the same bits when run twice (the
+    depth and winner scatters are min and max, independent of order)."""
+    from acezero_tpu_torch.viz.renderer import composite_frame
+
+    rng = np.random.default_rng(12)
+    xyz = (rng.normal(size=(300_000, 3)) * [1.5, 1.0, 0.8] + [0, 0, 4.0]).astype(np.float32)
+    rgb = rng.uniform(size=(300_000, 3)).astype(np.float32)
+    cams = (rng.normal(size=(2_000, 3)) + [0, 0, 4.0]).astype(np.float32), rng.uniform(size=(2_000, 3)).astype(
+        np.float32)
+    view = np.eye(4)
+    view[:3, 3] = [0.1, -0.2, 0.3]
+    xyz_d, rgb_d = torch.from_numpy(xyz).to(cuda), torch.from_numpy(rgb).to(cuda)
+    card = [composite_frame(xyz_d, rgb_d, *cams, view, 800.0, 720, 1280) for _ in range(2)]
+    cpu = composite_frame(xyz, rgb, *cams, view, 800.0, 720, 1280, device="cpu")
+    assert np.array_equal(card[0], card[1])
+    assert np.any(card[0] != cpu, axis=-1).mean() <= 1e-3
+    assert (card[0] != 255).any()
+
+
+def test_regressor_equals_predict_coords_on_the_card(cuda):
+    """Regressor.forward and the export's predict_coords run the same
+    encoder and K1 launch on the same canvases: the same bits."""
+    from acezero_tpu_torch.data.augment import normalize_images
+    from acezero_tpu_torch.export.point_cloud import predict_coords
+    from acezero_tpu_torch.models import Regressor
+
+    reg = Regressor.create_from_split_state_dict(chip_smoke.ENCODER, chip_smoke.HEAD)
+    canvases = np.random.default_rng(13).integers(0, 256, (8, 96, 128)).astype(np.uint8)
+    before = fh.LAUNCHES
+    want = predict_coords(reg.encoder_params, reg.head_params, reg.head_cfg, canvases)
+    with torch.inference_mode():
+        got = reg.forward(normalize_images(torch.from_numpy(canvases).to(cuda))).cpu().numpy()
+    assert fh.LAUNCHES == before + 2
+    assert np.array_equal(got, want) and np.isfinite(got).all()

@@ -6,13 +6,13 @@ fakes that replay a script of registration rates and loop-closure
 outcomes, and their call logs, artifact names and poses_final.txt must be
 equal, with loop closure off and on (no drift, a drift-free probe and its
 memo, drift drained by a cycle, drift not drained with the final graph
-choice; learned seed depth, calibration files, point-cloud export and the
-host-spill buffer); (c) the mini loop of tests/test_pipeline_e2e.py:32 (loop
-closure off, as there) through the port's CLI on the CPU and through the
-JAX pipeline on one device; (d, slow) that loop's spread over base seeds;
-(e) the branch the port leaves out (rendering) raises at construction. The
-parallel seed path (early seed selection, register_frames_multi) runs for
-real at a tiny size.
+choice; learned seed depth, calibration files, point-cloud export, the
+host-spill buffer, and the visualizer's hooks with every render call and
+the renderings folder's files); (c) the mini loop of
+tests/test_pipeline_e2e.py:32 (loop closure off, as there) through the
+port's CLI on the CPU and through the JAX pipeline on one device; (d, slow)
+that loop's spread over base seeds. The parallel seed path (early seed
+selection, register_frames_multi) runs for real at a tiny size.
 """
 
 import dataclasses
@@ -29,12 +29,15 @@ import acezero_tpu.data.depth as jdepth
 import acezero_tpu.export.point_cloud as jexport
 import acezero_tpu.reconstruct.loopclose as jlc
 import acezero_tpu.reconstruct.pipeline as jpipe
+import acezero_tpu.viz as jviz
+import acezero_tpu.viz.visualizer as jvisualizer
 from acezero_tpu.evalpose import evaluate_poses as j_evaluate
 from acezero_tpu.io.pose_files import load_pose_files_glob
 from acezero_tpu.io.pose_files import read_pose_file as j_read
 from acezero_tpu.reconstruct import AceZeroConfig as JConfig
 from acezero_tpu.reconstruct import AceZeroPipeline as JPipeline
 import acezero_tpu_torch.reconstruct.pipeline as tpipe
+import acezero_tpu_torch.viz.visualizer as tvisualizer
 from acezero_tpu_torch.cli import ace_zero_cli
 from acezero_tpu_torch.evalpose import evaluate_poses as t_evaluate
 from acezero_tpu_torch.io.pose_files import read_pose_file
@@ -161,10 +164,16 @@ class _Script:
             "focals": [float(f) for f in scene.focals_orig],
         })
 
+        callback = _kw.get("frame_callback")
+
         class Trainer:
             def train(self):
                 script.heads += 1
                 n = len(scene)
+                if callback is not None:  # the trainer's cadence: every iterations_output steps and the last
+                    its = list(range(cfg.iterations_output, cfg.schedule.iterations, cfg.iterations_output))
+                    for it in its + [cfg.schedule.iterations]:
+                        callback(it, np.tile(np.eye(3, 4), (n, 1, 1)))
                 return {"head_params": {"id": script.heads}, "poses_w2c": np.tile(np.eye(3, 4), (n, 1, 1)),
                         "focal_orig": 100.0 + script.heads if cfg.refine_calibration else None}
 
@@ -183,6 +192,42 @@ class _Script:
     def export(self, path, encoder_params, head_params, head_cfg, scene, entries, dense=False, **_kw):
         self.calls.append({"call": "export", "path": Path(path).name, "head": head_params["id"],
                            "frames": len(entries), "dense": dense})
+
+    def cloud(self, encoder_params, head_params, head_cfg, scene, entries, **_kw):
+        """The visualizer's per-round cloud: a few points per frame."""
+        self.calls.append({"call": "viz_cloud", "head": head_params["id"], "frames": len(entries)})
+        xyz = np.arange(12.0 * len(entries), dtype=np.float32).reshape(-1, 3) / 10 + head_params["id"]
+        return xyz, np.full(xyz.shape, 100 + head_params["id"], np.uint8)
+
+    def wrap_visualizer(self, cls, monkeypatch):
+        """Log every render call and state pickle of the visualizer class."""
+        script = self
+        real = {name: getattr(cls, name) for name in ("render_mapping_frame", "render_reloc_frame",
+                                                      "render_final_sweep", "save_state")}
+
+        def mapping(viz, poses_c2w, caption=None, progress=None):
+            script.calls.append({"call": "render_mapping", "cameras": len(poses_c2w), "caption": caption,
+                                 "progress": progress})
+            return real["render_mapping_frame"](viz, poses_c2w, caption, progress)
+
+        def reloc(viz, poses_c2w, confidences, caption=None):
+            script.calls.append({"call": "render_reloc", "cameras": len(poses_c2w), "caption": caption,
+                                 "confidences": [float(c) for c in confidences]})
+            return real["render_reloc_frame"](viz, poses_c2w, confidences, caption)
+
+        def sweep(viz, poses_c2w, first_iterations, num_frames=150):
+            script.calls.append({"call": "render_sweep", "cameras": len(poses_c2w), "frames": num_frames,
+                                 "first_iterations": [float(i) for i in first_iterations]})
+            return real["render_final_sweep"](viz, poses_c2w, first_iterations, num_frames)
+
+        def save_state(viz, path):
+            script.calls.append({"call": "viz_state", "name": Path(path).name,
+                                 "history": dict(viz.registration_history), "points": len(viz.cloud_xyz)})
+            return real["save_state"](viz, path)
+
+        for name, fn in (("render_mapping_frame", mapping), ("render_reloc_frame", reloc),
+                         ("render_final_sweep", sweep), ("save_state", save_state)):
+            monkeypatch.setattr(cls, name, fn)
 
     def register(self, encoder_params, head_params, head_cfg, scene, cfg, focal_override_orig=None, **_kw):
         self.calls.append({
@@ -240,7 +285,15 @@ CASES = {
     "export": ({"iterations_max": 10, "export_point_cloud": True, "dense_point_cloud": True},
                [0.3, 0.3, 0.995, 0.9]),
     "host_spill": ({"iterations_max": 10, "training_buffer_cpu": True}, [0.3, 0.3, 0.995, 0.9]),
+    # the visualizer: a render round after each registration, mapping
+    # frames in the main-loop rounds (not in the refit cycles), the sweep;
+    # the default iterations_output (500) puts two in each round
+    "render_visualization": ({**LC, "render_visualization": True},
+                             [0.3, 0.3, 0.995, 0.9, 0.95], [True, True, False]),
 }
+# the visualizer's frames at a size, and its cloud at a budget, that keep
+# the case quick (the JAX renderer compiles once for each point count)
+VIZ_SMALL = dict(frame_h=48, frame_w=64, point_budget=12)
 
 
 def _flow(module, lc_module, pipeline_cls, config_cls, kw, rates, drift, monkeypatch, folder, **init):
@@ -252,6 +305,11 @@ def _flow(module, lc_module, pipeline_cls, config_cls, kw, rates, drift, monkeyp
     # the JAX pipeline imports these where it calls them, the port at the top
     monkeypatch.setattr(jdepth if module is jpipe else module, "learned_depth_estimator", script.depth)
     monkeypatch.setattr(jexport if module is jpipe else module, "export_point_cloud_from_network", script.export)
+    monkeypatch.setattr(jexport if module is jpipe else module, "point_cloud_from_network", script.cloud)
+    viz_module = jviz if module is jpipe else module
+    viz_cfg = viz_module.VizConfig
+    monkeypatch.setattr(viz_module, "VizConfig", lambda **kw: viz_cfg(**kw, **VIZ_SMALL))
+    script.wrap_visualizer((jvisualizer if module is jpipe else tvisualizer).ReconstructionVisualizer, monkeypatch)
     cfg = config_cls(**{**kw, "results_folder": folder})
     result = pipeline_cls(cfg, encoder_params={}, **init).run()
     assert not script.rates, "the script has rates left over"
@@ -299,6 +357,19 @@ def test_control_flow_matches_jax(case, scene_dir, tmp_path, monkeypatch):
                                "frames": N, "dense": True}
     if case == "host_spill":
         assert all(c["host_spill"] for c in calls_t if c["call"] == "train")
+    if case == "render_visualization":
+        renders = [tmp_path / p / "renderings" for p in ("t", "j")]
+        assert sorted(p.name for p in renders[0].iterdir()) == sorted(p.name for p in renders[1].iterdir())
+        kinds = {k: sum(c["call"] == k for c in calls_t) for k in ("render_mapping", "render_reloc", "render_sweep")}
+        # 4 registrations (seed map, two rounds, one refit cycle) of 10 frames
+        # each, 2 mapping frames in each of the two main-loop rounds
+        assert kinds == {"render_mapping": 4, "render_reloc": 40, "render_sweep": 1}
+        states = [c["name"] for c in calls_t if c["call"] == "viz_state"]
+        assert states == ["iteration0_seed0_register.pkl", "iteration1_register.pkl", "iteration2_register.pkl",
+                          "iteration3_register.pkl"]
+        assert len(list(renders[0].glob("frame_*.png"))) == 4 + 40 + 150
+    else:
+        assert not any(c["call"].startswith("render") for c in calls_t)
     if case == "lc_final_graph":
         assert "poses_iteration3_loopclosed.txt" in files_t
         assert all(float(ln.split()[5]) == 1000.0 for ln in final.splitlines())
@@ -426,19 +497,6 @@ def test_mini_loop_spread(scene_dir, tmp_path):
     print(json.dumps({"jax": rates_j, "port": rates_t}))
     assert all(RATE_BAND[0] <= r <= RATE_BAND[1] for r in rates_j + rates_t)
     assert min(rates_j) - 1 / N <= np.mean(rates_t) <= max(rates_j) + 1 / N
-
-
-# ------------------------------------------------- (e) left-out branches
-
-
-@pytest.mark.parametrize("over,what", [
-    ({"render_visualization": True}, "render_visualization.*section 1, viz"),
-])
-def test_left_out_branches_raise_at_construction(over, what, scene_dir, tmp_path):
-    kw = {**_scene_kw(scene_dir, tmp_path / "out"), **over}
-    with pytest.raises(NotImplementedError, match=what):
-        AceZeroPipeline(AceZeroConfig(**kw), device="cpu", encoder_params={})
-    assert not (tmp_path / "out").exists()
 
 
 def test_cli_without_cuda_raises(scene_dir, tmp_path, monkeypatch):
