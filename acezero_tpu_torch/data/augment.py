@@ -68,6 +68,22 @@ def _affine_sample_nearest(img: torch.Tensor, A: torch.Tensor, b: torch.Tensor) 
     return torch.where(valid[..., None], out, torch.zeros((), dtype=img.dtype, device=dev))
 
 
+def draw_aug_params(generator: torch.Generator, n: int, aug_rotation_deg: float, aug_scale_min: float,
+                    aug_scale_max: float, aug_black_white: float = 0.1, device=None) -> dict:
+    """`augment_batch`'s draws for `n` images from `generator` (on `device`,
+    by default the generator's): {thetas (radians), scales, brightness,
+    contrast}, each (n,) uniform, drawn in that order."""
+    dev = generator.device if device is None else device
+
+    def u(lo, hi):
+        return torch.rand((n,), generator=generator, device=dev) * (hi - lo) + lo
+
+    bw = aug_black_white
+    return {"thetas": u(-1.0, 1.0) * aug_rotation_deg * math.pi / 180.0,
+            "scales": u(aug_scale_min, aug_scale_max),
+            "brightness": u(1.0 - bw, 1.0 + bw), "contrast": u(1.0 - bw, 1.0 + bw)}
+
+
 def augment_batch(images_u8: torch.Tensor, sizes: torch.Tensor, aug_rotation_deg: float,
                   aug_scale_min: float, aug_scale_max: float, aug_black_white: float = 0.1,
                   enabled: bool = True, generator: torch.Generator | None = None,
@@ -90,14 +106,8 @@ def augment_batch(images_u8: torch.Tensor, sizes: torch.Tensor, aug_rotation_deg
     elif params is None:
         if generator is None:
             raise ValueError("augment_batch needs a generator or explicit params")
-
-        def u(lo, hi):
-            return torch.rand((n,), generator=generator, device=dev) * (hi - lo) + lo
-
-        bw = aug_black_white
-        params = {"thetas": u(-1.0, 1.0) * aug_rotation_deg * math.pi / 180.0,
-                  "scales": u(aug_scale_min, aug_scale_max),
-                  "brightness": u(1.0 - bw, 1.0 + bw), "contrast": u(1.0 - bw, 1.0 + bw)}
+        params = draw_aug_params(generator, n, aug_rotation_deg, aug_scale_min, aug_scale_max, aug_black_white,
+                                 device=dev)
     thetas = params["thetas"].to(dev, torch.float32)
     scales = params["scales"].to(dev, torch.float32)
     brightness = params["brightness"].to(dev, torch.float32)

@@ -7,9 +7,11 @@ extra-block count from `<i>c0.weight`, homogeneous output from fc3's width.
 `save_head` writes the same keys (and the scale buffers) as the JAX
 package's writer, fp16 by default, so either package reads the other's
 file. Depth heads (`weights/tpu_depth_v*.pt`, `d_conv1..4`) are conv state
-dicts like the encoders. `params_from_jax` converts the JAX package's numpy
-parameter trees (HWIO convs, (cin, cout) dense layers) into the port's
-layout.
+dicts like the encoders; `save_encoder` writes encoders and depth heads
+in the JAX package's layout (`<layer>.weight` OIHW f32, `<layer>.bias`), so
+either package loads the other's file. `params_from_jax` converts the JAX
+package's numpy parameter trees (HWIO convs, (cin, cout) dense layers) into
+the port's layout.
 """
 
 from __future__ import annotations
@@ -136,12 +138,34 @@ def save_head(path: str | Path, params: dict, cfg: HeadConfig, half: bool = True
     torch.save(export_head_state_dict(params, cfg, half=half), str(path))
 
 
+def export_encoder_state_dict(params: dict, half: bool = False) -> dict:
+    """Conv params {name: {"w": OIHW, "b"}} -> the JAX package's encoder
+    state dict: `<name>.weight` OIHW and `<name>.bias`, f32 (fp16 with
+    `half`), on the CPU. Depth heads are written the same way."""
+
+    def t(x):
+        out = x.detach().to("cpu", torch.float32).contiguous().clone()
+        return out.half() if half else out
+
+    sd = {}
+    for name, p in params.items():
+        sd[name + ".weight"] = t(p["w"])
+        sd[name + ".bias"] = t(p["b"])
+    return sd
+
+
+def save_encoder(path: str | Path, params: dict, half: bool = False) -> None:
+    torch.save(export_encoder_state_dict(params, half=half), str(path))
+
+
 def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu", posenet_np: dict | None = None,
                     depth_np: dict | None = None):
     """The JAX package's parameter trees (numpy arrays) in the port's layout:
     HWIO convs become OIHW, dense layers stay (cin, cout). Any tree may be
-    None. Returns (encoder_params, head_params), then posenet_params when
-    `posenet_np` is given, then depth-head params when `depth_np` is given."""
+    None; `head_np` may be a stack of heads (every leaf with a leading
+    scene axis, `mean` (S, 3)). Returns (encoder_params, head_params), then
+    posenet_params when `posenet_np` is given, then depth-head params when
+    `depth_np` is given."""
 
     def t(a):
         return torch.from_numpy(np.array(a, np.float32))
@@ -160,7 +184,8 @@ def params_from_jax(encoder_np: dict | None, head_np: dict | None, device="cpu",
                     {c: {"w": t(q["w"]), "b": t(q["b"])} for c, q in blk.items()} for blk in p
                 ]
             elif key == "mean":
-                head["mean"] = t(p).reshape(3)
+                # (3,), or (S, 3) in a stack of per-scene heads
+                head["mean"] = t(p) if np.ndim(p) == 2 else t(p).reshape(3)
             else:
                 head[key] = {"w": t(p["w"]), "b": t(p["b"])}
         head = _to(head, device)

@@ -9,7 +9,8 @@ device bool: a disabled step leaves parameters, moments and the step count
 exactly as they were (`torch.where`), with no host sync.
 
 Trees are dicts and lists of tensors, or a single tensor; updates return new
-trees (nothing is modified in place).
+trees (nothing is modified in place). `clip_global_norm` and
+`clip_per_row_norm` are the pretraining's gradient clips.
 """
 
 from __future__ import annotations
@@ -96,3 +97,25 @@ def adamw_update(params, grads, state: AdamWState, lr, beta1: float = 0.9, beta2
     out = [torch.where(keep, new, old) for new, old in ((p_new, p), (m_new, m), (v_new, v))]
     trees = [tree_unflatten(params, [t.view(ref.shape) for t, ref in zip(o.split(sizes), p_l)]) for o in out]
     return trees[0], AdamWState(step=step, mu=trees[1], nu=trees[2])
+
+
+def clip_global_norm(grads, max_norm: float):
+    """(grads scaled so their global L2 norm is at most `max_norm`, the norm
+    before clipping); the scale stays on the device."""
+    leaves = tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_unflatten(grads, [(leaf * scale).to(leaf.dtype) for leaf in leaves]), gn
+
+
+def clip_per_row_norm(grads, max_norm: float):
+    """Clip a stacked tree (leading axis: independent models, e.g. the
+    pretraining's per-scene heads) row by row: (clipped tree, (S,) norms).
+    One diverging row cannot shrink the others' update through a shared
+    scale."""
+    leaves = tree_leaves(grads)
+    sq = sum(torch.sum((leaf.float() ** 2).reshape(leaf.shape[0], -1), dim=1) for leaf in leaves)
+    gn = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_unflatten(grads, [(leaf * scale.reshape((-1,) + (1,) * (leaf.dim() - 1))).to(leaf.dtype)
+                                  for leaf in leaves]), gn

@@ -83,7 +83,19 @@ Phases:
               buffer against the host-spill buffer (--training_buffer_cpu)
               from one seed: equal fills and bit-equal parameters after
               SPILL_STEPS[0] steps, then SPILL_STEPS[1] steps of each timed
- 13 report    one JSON line describing every kernel, then the card's
+ 13 pretrain  the pretraining slice: the encoder pretraining CLI at its
+              default widths with the v6 recipe's contrastive weight (steps
+              cut, PRETRAIN_ARGS; K1 and K2 once an image a step, counts
+              zeroed just before and read just after), steps past its
+              warm-up on the card against the CPU (terms within
+              PRETRAIN_CPU_RTOL, updates within PRETRAIN_UPDATE_TOL),
+              match_score of the shipped encoder against the JAX package's
+              (MATCH_JAX_V6) and of the new one (MATCH_TRAINED), the short
+              map fit of the shipped encoder (SHORTFIT_ITERATIONS, at least
+              SHORTFIT_MIN_INLIER10), then the seed-depth pretraining CLI on
+              the v4 corpus (cut, DEPTH_PRETRAIN) and its first steps on the
+              card against the CPU
+ 14 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons), and
@@ -115,7 +127,7 @@ HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
 PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
-          "seeddepth", "bare", "render", "spill", "report")
+          "seeddepth", "bare", "render", "spill", "pretrain", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -123,6 +135,8 @@ PEAK_BYTES = 3.35e12
 
 K1_TOL = 1e-2  # relative Frobenius error of the bf16 chain output
 ONE_BLOCK_TAGS = (0, 0, 1, 0, 0, 1, 0, 0)
+# the pretraining's head launch: one 192 x 256 image (24 x 32 cells), head_blocks 0
+PRETRAIN_ROWS, PRETRAIN_TAGS = 24 * 32, (0, 0, 1, 0, 0)
 H100_SMS = 132
 # (case, rows B, residual tags): the registration shape (60x80 cells x 64
 # frames, num_head_blocks=1), a ragged B, num_head_blocks 0 and 2, the
@@ -136,10 +150,11 @@ K1_CASES = [("registration", 307_200, ONE_BLOCK_TAGS), ("ragged", 3 * 4800 + 37,
             ("mapping", 5120, ONE_BLOCK_TAGS),
             ("B1", 1, ONE_BLOCK_TAGS), ("B64", 64, ONE_BLOCK_TAGS), ("B65", 65, ONE_BLOCK_TAGS),
             ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", H100_SMS * 64, ONE_BLOCK_TAGS),
-            ("persistent", (2 * H100_SMS + 1) * 64 + 37, ONE_BLOCK_TAGS)]
+            ("persistent", (2 * H100_SMS + 1) * 64 + 37, ONE_BLOCK_TAGS),
+            ("pretrain", PRETRAIN_ROWS, PRETRAIN_TAGS)]
 # the main paths' shapes, and one tile and a full card to tell the fill from
 # the per-tile pipeline
-K1_TIMED = ("registration", "mapping", "B64", "fill132")
+K1_TIMED = ("registration", "mapping", "B64", "fill132", "pretrain")
 # K2 (the chain's backward): dx, gpre and acts_in against the plain version,
 # relative Frobenius. Both round to bf16 at the same points, but a tensor-core
 # sum and an IEEE f32 sum flip single bf16 roundings and, rarely, ReLU masks,
@@ -160,8 +175,10 @@ K2_GRAD_TOL = 2e-2  # dW, db of the autograd Function against autograd of the pl
 K2_CASES = [("mapping", 5120, ONE_BLOCK_TAGS), ("ragged", 5120 + 37, ONE_BLOCK_TAGS),
             ("blocks0", 5120, (0, 0, 1, 0, 0)), ("blocks2", 5120, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0)),
             ("B1", 1, ONE_BLOCK_TAGS), ("B64", 64, ONE_BLOCK_TAGS), ("B65", 65, ONE_BLOCK_TAGS),
-            ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", H100_SMS * 64, ONE_BLOCK_TAGS)]
-K2_TIMED = ("mapping", "B64", "fill132")  # kernel_ms of each; plain and library at the mapping shape
+            ("L1", 5120, (0,)), ("L1res", 5120 + 37, (1,)), ("fill132", H100_SMS * 64, ONE_BLOCK_TAGS),
+            ("pretrain", PRETRAIN_ROWS, PRETRAIN_TAGS)]
+# kernel_ms of each; plain and library at the mapping and pretraining shapes
+K2_TIMED = ("mapping", "B64", "fill132", "pretrain")
 # phase mapping, two runs of the train CLI: the pipeline's mapping recipe
 # (AceZeroPipeline._base_train_cfg: 1cyclepoly at 0.003, tanh, MLP pose and
 # focal refinement), then the same schedule on the frames' fixed poses for the
@@ -258,6 +275,56 @@ REGRESSOR_FRAMES = 8
 EXPORT_CONF = 500  # export_cli --network takes the frames registered at the pipeline's confidence bar
 # phase spill: steps held bit for bit, then steps timed with each buffer
 SPILL_STEPS = (200, 500)
+# phase pretrain: the encoder pretraining CLI at its default widths (8 scenes
+# x 24 views at 192 x 256, batch 8, head_blocks 0, exact supervision) with the
+# v6 recipe's contrastive weight and steps cut from 4,000 to 1,200 (the
+# coordinate loss sits on a plateau for the first 800 steps at any schedule
+# length, 13.2 -> 13.0 over 600 steps, and falls 20% by step 1,200: PERF.md
+# section 6, the pretraining findings); the depth
+# pretraining CLI on the v4 corpus at 240 x 320 and batch 32, scenes cut from
+# 64 to 8 and steps from 8,000 to 500; the short map fit of the shipped
+# encoder cut from 6,000 iterations to 1,000 (its warm-up 500 and cooldown
+# 1,000 as in the JAX package: cut in proportion, the fit scores lower)
+PRETRAIN_STEPS = 1200
+PRETRAIN_ARGS = ["--contrastive_weight", "0.2", "--steps", str(PRETRAIN_STEPS)]
+DEPTH_PRETRAIN = {"corpus": "v4", "num_scenes": 8, "steps": 500}
+SHORTFIT_ITERATIONS = 1000
+# v6's short fit at that cut must place at least this share of cells within
+# 10 px: the card gives 14.74% (the same bits in four calls), an untrained
+# encoder 0.05% and v6's uncut probe 43.1% (scripts/shortfit_probe.py, PERF.md
+# section 6, PR 13), so a fit or a score that is broken lands far below
+SHORTFIT_MIN_INLIER10 = 7.0
+# the freshly trained encoder's match_score is only printed; at a quarter of
+# the default pixels (24 views at 240 x 320) it costs a quarter of the time
+MATCH_TRAINED = {"h": 240, "w": 320}
+# the JAX package's match_score of tpu_encoder_v6.pt at its defaults (2 scenes
+# x 24 views at 480 x 640) on the CPU, from
+#   JAX_PLATFORMS=cpu python -c "import jax, jax.numpy as jnp;
+#   from acezero_tpu.models.torch_io import load_encoder;
+#   from acezero_tpu.pretrain.encoder_eval import match_score;
+#   print(match_score(jax.tree.map(jnp.asarray, load_encoder('weights/tpu_encoder_v6.pt'))))"
+# (the port's CPU path gives 80.0548); the card must be within MATCH_TOL_PP
+MATCH_JAX_V6 = 80.0383528112198
+MATCH_TOL_PP = 1.0
+# the first steps of each pretraining on the card and on the CPU from the same
+# parameters and draws: every loss term within PRETRAIN_CPU_RTOL relative. Both
+# round the convolutions' bf16 outputs, but cuDNN and the CPU sum in other
+# orders, so single roundings flip (on the CPU, oneDNN against the JAX
+# package's XLA moves the terms by up to 2e-4, tests/test_torch_pretrain.py and
+# test_torch_depth_pretrain.py), and the card's head chain rounds as K1 does.
+# The encoder's steps start at PRETRAIN_CPU_STEP0, its warm-up's end, so they
+# run at the full rate (from step 0 the rate is 0, then 1e-5, and the terms
+# would see only the forward pass): each step's parameters come from the
+# previous step's gradients. The update of every tree after the steps (after -
+# before) is also held against the CPU's, within PRETRAIN_UPDATE_TOL relative
+# Frobenius: Adam's first steps move a weight by about lr * sign(g), so weights
+# whose gradient is within rounding of zero flip their step (2-7% of the
+# update against the JAX package on the CPU, tests/test_torch_pretrain.py); a
+# wrong gradient is O(1).
+PRETRAIN_CPU_STEPS = 3
+PRETRAIN_CPU_STEP0 = 200
+PRETRAIN_CPU_RTOL = 5e-3
+PRETRAIN_UPDATE_TOL = 0.15
 FRAMES = "frame_*.png"
 N_FRAMES = 60
 DEVICE = "cuda"
@@ -587,6 +654,29 @@ def card_vs_cpu(np, card, cpu):
                                   "scale_max": float(np.abs(s_g - s_c).max())}}
 
 
+def pretrain_draws(torch, tep, cfg, n_total: int, steps: int, seed: int) -> list:
+    """`steps` steps' draws for `pretrain_chunk` from a CPU generator: the
+    batch rows and the augmentation (`data/augment.draw_aug_params`)."""
+    from acezero_tpu_torch.data.augment import draw_aug_params
+
+    gen = torch.Generator().manual_seed(seed)
+    return [{"batch_idx": tep.sample_batch(cfg, n_total, gen, "cpu"),
+             "aug": draw_aug_params(gen, cfg.batch_images, tep.AUG_ROTATION_DEG, tep.AUG_SCALE_MIN,
+                                    tep.AUG_SCALE_MAX)}
+            for _ in range(steps)]
+
+
+def rel_update(torch, tree_leaves, after, before, want_after) -> float:
+    """How far one device's update of a tree (after - before) is from
+    another's (want_after - before): the relative Frobenius difference over
+    all leaves, on the CPU."""
+    def flat(tree):
+        return torch.cat([t.detach().float().cpu().reshape(-1) for t in tree_leaves(tree)])
+
+    a, b, w = flat(after), flat(before), flat(want_after)
+    return float((a - w).norm() / (w - b).norm())
+
+
 def parse_phases(argv) -> list[str]:
     """The phases to run, in PHASES order, `device` always among them and
     `bare` whenever `render` is (it reads bare's output). An unknown name
@@ -752,7 +842,7 @@ def main(argv=None) -> int:
                                  smem_bytes=info["smem_bytes"], tiles=tiles, sm_fill=tiles / sms,
                                  ms_per_tile_wave=entry["kernel_ms"] / -(-tiles // sms))
                     k2[name] = entry
-                if name == "mapping":
+                if name in ("mapping", "pretrain"):
                     lib = library_chain_backward(torch, x, w, b, g, tags)
                     entry["rel_err_dx_vs_library"] = rel_err(out[0], lib[0])
                     entry["plain_ms"] = time_ms(lambda: fh.fused_head_chain_backward_plain(x, w, b, g, tags), torch)
@@ -1560,6 +1650,144 @@ def main(argv=None) -> int:
             require(all(rec[n]["fused_head_bwd_launches"] == total and rec[n]["fused_head_fwd_launches"] >= total
                         for n in ("device", "host_spill")), f"a run missed its kernels: {spill_launches}")
 
+    pretrain_launches = None  # launch counts of phase pretrain, by run
+    if "pretrain" in phases:
+        with phase("pretrain", {}) as rec:
+            from acezero_tpu_torch.cli import pretrain_cli, pretrain_depth_cli
+            from acezero_tpu_torch.models.depthnet import init_depth_head_params
+            from acezero_tpu_torch.pretrain import depth_pretrain as tdp
+            from acezero_tpu_torch.pretrain import encoder_eval
+            from acezero_tpu_torch.pretrain import encoder_pretrain as tep
+            from acezero_tpu_torch.training.optim import adamw_init, tree_unflatten
+
+            def to(tree, dev):
+                return tree_unflatten(tree, [t.to(dev) for t in tree_leaves(tree)])
+
+            rec.update(kind=kind, nvidia_smi=smi, encoder_args=PRETRAIN_ARGS, depth_cuts=DEPTH_PRETRAIN,
+                       shortfit_iterations=SHORTFIT_ITERATIONS, cpu_rtol=PRETRAIN_CPU_RTOL)
+            pretrain_launches = {}
+            cfg = tep.PretrainConfig(contrastive_weight=0.2, steps=PRETRAIN_STEPS)  # the CLI's configuration
+            with tempfile.TemporaryDirectory() as tmp:
+                # 1. encoder pretraining through the CLI, counts zeroed just before
+                enc_path = Path(tmp) / "enc.pt"
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = time.perf_counter()
+                res = pretrain_cli.main([str(enc_path), *PRETRAIN_ARGS, "--device", DEVICE])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                pretrain_launches["encoder"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD}
+                hist, means = res["history"], res["chunk_means"]
+                trained = torch_io.load_encoder(enc_path, DEVICE)
+                shipped = torch_io.load_encoder(ENCODER)
+                rec["encoder"] = {
+                    "cli_seconds": wall, "corpus_seconds": res["corpus_seconds"],
+                    "train_seconds": res["train_seconds"], "steps": res["steps"],
+                    "ms_per_step": res["train_seconds"] / res["steps"] * 1e3,
+                    "steps_per_s": res["steps"] / res["train_seconds"],
+                    "history": hist, "chunk_means": means,
+                    "fused_head_fwd_launches": fh.LAUNCHES, "fused_head_bwd_launches": fh.LAUNCHES_BWD,
+                    "launches_per_step": [fh.LAUNCHES / res["steps"], fh.LAUNCHES_BWD / res["steps"]]}
+                want_launches = PRETRAIN_STEPS * cfg.batch_images
+                require(res["steps"] == PRETRAIN_STEPS, f"the CLI ran {res['steps']} steps")
+                require(all(np.isfinite(list(h.values())).all() for h in hist), f"a logged term is not finite: {hist}")
+                require(means[-1]["coord_l2"] < means[0]["coord_l2"],
+                        f"coord_l2 did not fall: {means[0]['coord_l2']} -> {means[-1]['coord_l2']} (chunk means)")
+                require(means[-1]["contrast"] > 0, f"no positives in the last chunk: {means[-1]}")
+                require({k: tuple(v["w"].shape) for k, v in trained.items()}
+                        == {k: tuple(v["w"].shape) for k, v in shipped.items()},
+                        "the written encoder does not have tpu_encoder_v6.pt's keys and shapes")
+                require(pretrain_launches["encoder"] == {"fwd": want_launches, "bwd": want_launches},
+                        f"K1/K2 launches {pretrain_launches['encoder']}, want {want_launches} each (one an image)")
+
+                # 2. steps past the warm-up on the card and on the CPU, same parameters
+                # and draws, on the corpus the CLI trained on
+                t0 = time.perf_counter()
+                corpus = res["corpus"]
+                params = tep.init_params(cfg, corpus)
+                draws = pretrain_draws(torch, tep, cfg, len(corpus["images_u8"]), PRETRAIN_CPU_STEPS, seed=1305)
+                runs, after = {}, {}
+                for dev in (DEVICE, "cpu"):
+                    p = to(params, dev)
+                    after[dev], _, st = tep.pretrain_chunk(
+                        p, (adamw_init(p["encoder"]), adamw_init(p["heads"])), tep.corpus_to_device(corpus, cfg, dev),
+                        PRETRAIN_CPU_STEP0, cfg, HeadConfig(num_head_blocks=cfg.head_blocks), draws=draws)
+                    runs[dev] = {k: v.cpu().tolist() for k, v in st.items()}
+                rel = {k: max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(runs[DEVICE][k], runs["cpu"][k]))
+                       for k in tep.STATS}
+                upd = {t: rel_update(torch, tree_leaves, after[DEVICE][t], params[t], after["cpu"][t])
+                       for t in ("encoder", "heads")}
+                rec["encoder_card_vs_cpu"] = {"step0": PRETRAIN_CPU_STEP0, "lr": tep._lr_at(cfg, PRETRAIN_CPU_STEP0),
+                                              "card": runs[DEVICE], "cpu": runs["cpu"], "max_rel": rel,
+                                              "update_rel": upd, "seconds": time.perf_counter() - t0}
+                require(max(rel.values()) <= PRETRAIN_CPU_RTOL,
+                        f"card and CPU pretraining steps differ by {rel} > {PRETRAIN_CPU_RTOL}")
+                require(max(upd.values()) <= PRETRAIN_UPDATE_TOL,
+                        f"card and CPU pretraining updates differ by {upd} > {PRETRAIN_UPDATE_TOL}")
+                del corpus, params, runs, after, res
+
+                # 3. the probes: match_score of the shipped and the new encoder, the short fit
+                t0 = synced_clock(torch)
+                m_v6 = encoder_eval.match_score(torch_io.load_encoder(ENCODER, DEVICE))
+                t_match = synced_clock(torch) - t0
+                m_new = encoder_eval.match_score(trained, **MATCH_TRAINED)
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = synced_clock(torch)
+                inl, med = encoder_eval.shortfit_score(torch_io.load_encoder(ENCODER, DEVICE),
+                                                       iterations=SHORTFIT_ITERATIONS)
+                t_fit = synced_clock(torch) - t0
+                pretrain_launches["shortfit"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD}
+                rec["probes"] = {"match_v6": m_v6, "match_v6_jax_cpu": MATCH_JAX_V6, "match_seconds": t_match,
+                                 "match_trained": m_new, "match_trained_at": MATCH_TRAINED,
+                                 "shortfit_v6_inlier10": inl, "shortfit_v6_med_px": med,
+                                 "shortfit_min_inlier10": SHORTFIT_MIN_INLIER10, "shortfit_seconds": t_fit,
+                                 "shortfit_launches": pretrain_launches["shortfit"]}
+                require(abs(m_v6 - MATCH_JAX_V6) <= MATCH_TOL_PP,
+                        f"match_score of v6 {m_v6:.3f} is not within {MATCH_TOL_PP} of the JAX package's {MATCH_JAX_V6:.3f}")
+                require(np.isfinite(m_new) and np.isfinite(inl) and np.isfinite(med),
+                        f"a probe is not finite: match {m_new}, shortfit {inl}, {med}")
+                require(pretrain_launches["shortfit"]["bwd"] > 0, "the short fit never launched K2")
+                require(inl >= SHORTFIT_MIN_INLIER10,
+                        f"v6's short fit places {inl:.2f}% of cells within 10 px, under {SHORTFIT_MIN_INLIER10}%")
+
+                # 4. seed-depth pretraining through the CLI, then its first steps card against CPU
+                depth_path = Path(tmp) / "depth.pt"
+                t0 = time.perf_counter()
+                dres = pretrain_depth_cli.main([str(depth_path), "--encoder_path", str(ENCODER),
+                                                *[a for k, v in DEPTH_PRETRAIN.items() for a in (f"--{k}", str(v))],
+                                                "--device", DEVICE])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                dcfg = tdp.DepthPretrainConfig(**DEPTH_PRETRAIN)  # the CLI's configuration
+                head = torch_io.load_depth_head(depth_path)
+                t1 = time.perf_counter()
+                images, gt = dres["corpus"]["images"], dres["corpus"]["gt_d8"]  # the CLI's corpus
+                order = np.random.default_rng(dcfg.seed).integers(0, len(images), (min(dcfg.chunk_steps, dcfg.steps),
+                                                                                   dcfg.batch_images))
+                init = init_depth_head_params(torch.Generator().manual_seed(dcfg.seed), width_mult=dcfg.width_mult)
+                runs, after = {}, {}
+                for dev in (DEVICE, "cpu"):
+                    p = to(init, dev)
+                    after[dev], _, losses = tdp.train_chunk(
+                        p, adamw_init(p), torch_io.load_encoder(ENCODER, dev), torch.from_numpy(images).to(dev),
+                        torch.from_numpy(gt).to(dev), torch.from_numpy(order[:PRETRAIN_CPU_STEPS]).to(dev),
+                        tdp.lr_table(dcfg), dcfg.silog_lambda, dcfg.grad_loss_weight)
+                    runs[dev] = losses.cpu().tolist()
+                drel = max(abs(a - b) / abs(b) for a, b in zip(runs[DEVICE], runs["cpu"]))
+                dupd = rel_update(torch, tree_leaves, after[DEVICE], init, after["cpu"])
+                rec["depth"] = {"cli_seconds": wall, "corpus_seconds": dres["corpus_seconds"],
+                                "train_seconds": dres["train_seconds"],
+                                "ms_per_step": dres["train_seconds"] / dcfg.steps * 1e3,
+                                "steps_per_s": dcfg.steps / dres["train_seconds"], "chunk_losses": dres["chunk_losses"],
+                                "head_layers": sorted(head), "card_vs_cpu": {"card": runs[DEVICE], "cpu": runs["cpu"],
+                                                                             "max_rel": drel, "update_rel": dupd},
+                                "card_vs_cpu_seconds": time.perf_counter() - t1}
+                require(np.isfinite(dres["chunk_losses"]).all() and dres["chunk_losses"][-1] < dres["chunk_losses"][0],
+                        f"the depth loss did not fall: {dres['chunk_losses']}")
+                require(drel <= PRETRAIN_CPU_RTOL, f"card and CPU depth steps differ by {drel} > {PRETRAIN_CPU_RTOL}")
+                require(dupd <= PRETRAIN_UPDATE_TOL,
+                        f"card and CPU depth-head updates differ by {dupd} > {PRETRAIN_UPDATE_TOL}")
+            torch.cuda.empty_cache()
+
     if "report" in phases:
         with phase("report", {}):
             def pick(entry, *keys):
@@ -1575,20 +1803,29 @@ def main(argv=None) -> int:
             bare_fwd, bare_bwd = (bare_launches["fwd"], bare_launches["bwd"]) if bare_launches else (0, 0)
             spill_fwd, spill_bwd = (spill_launches["fwd"], spill_launches["bwd"]) if spill_launches else (0, 0)
             render_fwd = render_launches["export_cli"] + render_launches["regressor"] if render_launches else 0
+            pre = pretrain_launches or {}
+            pre_fwd, pre_bwd = (pre["encoder"]["fwd"], pre["encoder"]["bwd"]) if pre else (0, 0)
+            fit_fwd, fit_bwd = (pre["shortfit"]["fwd"], pre["shortfit"]["bwd"]) if pre else (0, 0)
+            k1_pre, k2_pre = k1.get("pretrain", {}), k2.get("pretrain", {})
+            shape_fields = ("B", "L", "kernel_ms", "kernel_ms_stream", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "rel_err", "max_abs_err")
             emit(kernels=[{
                 "name": "fused_head_fwd",
                 "route": "cuda",
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_fwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:108",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
-                "launches": (launches or 0) + fwd + (lc_launches or 0) + pipe_fwd + bare_fwd + render_fwd + spill_fwd,
+                "launches": ((launches or 0) + fwd + (lc_launches or 0) + pipe_fwd + bare_fwd + render_fwd + spill_fwd
+                             + pre_fwd + fit_fwd),
                 "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None,
                                      "loopclose": lc_launches, "pipeline": pipe_fwd if pipe_launches else None,
                                      "pipeline_loop_closure": pipe_lc, "bare": bare_fwd if bare_launches else None,
                                      "bare_render_hooks": (len(bare_launches["render_shapes"]) if bare_launches
                                                            else None),
                                      "render": render_fwd if render_launches else None,
-                                     "spill": spill_fwd if spill_launches else None},
+                                     "spill": spill_fwd if spill_launches else None,
+                                     "pretrain": pre_fwd if pre else None,
+                                     "pretrain_shortfit": fit_fwd if pre else None},
                 # [B, L] of each loop-closure launch, recorded where it was made
                 "loop_closure_shapes": {"loopclose": lc_shapes,
                                         "pipeline": pipe_launches["loop_closure_shapes"] if pipe_launches else None},
@@ -1607,6 +1844,7 @@ def main(argv=None) -> int:
                 "mapping_shape": pick(k1_map, "B", "L", "kernel_ms", "kernel_ms_stream", "launch_overhead_ms",
                                       "plain_ms", "library_ms", "bound_ms", "bound_by", "rel_err",
                                       "rel_err_vs_library"),
+                "pretrain_shape": pick(k1_pre, *shape_fields),
                 "other_shapes": {name: pick(e, "B", "L", "kernel_ms", "kernel_ms_stream", "tflops", "sm_fill")
                                  for name, e in k1.items() if name not in ("registration", "mapping")},
             }, {
@@ -1615,16 +1853,19 @@ def main(argv=None) -> int:
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:112",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
-                "launches": bwd + pipe_bwd + bare_bwd + spill_bwd,
+                "launches": bwd + pipe_bwd + bare_bwd + spill_bwd + pre_bwd + fit_bwd,
                 "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None,
                                      "loopclose": 0 if lc_launches is not None else None,
                                      "pipeline": pipe_bwd if pipe_launches else None,
                                      "bare": bare_bwd if bare_launches else None,
                                      "render": 0 if render_launches else None,
-                                     "spill": spill_bwd if spill_launches else None},
+                                     "spill": spill_bwd if spill_launches else None,
+                                     "pretrain": pre_bwd if pre else None,
+                                     "pretrain_shortfit": fit_bwd if pre else None},
                 **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),
                 "ms": k2_map.get("kernel_ms"),
                 "shape": pick(k2_map, "B", "L"),
+                "pretrain_shape": pick(k2_pre, *shape_fields),
                 "other_shapes": {name: pick(e, "B", "L", "kernel_ms", "kernel_ms_stream", "tflops", "sm_fill")
                                  for name, e in k2.items() if name != "mapping"},
             }])

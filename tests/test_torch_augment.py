@@ -112,6 +112,24 @@ def test_augment_disabled_and_generator_draws():
     assert float(a["thetas"].abs().max()) <= np.radians(15.0) and float(a["scales"].min()) >= 1 / 1.5
 
 
+@pytest.mark.parametrize("black_white", [0.1, 0.3])
+def test_draw_aug_params_are_the_batch_draws(black_white):
+    """augment_batch's own draws are draw_aug_params' on the same stream,
+    inside the ranges it is given."""
+    rng = np.random.default_rng(6)
+    imgs = torch.from_numpy(rng.integers(0, 256, (5, 32, 48)).astype(np.uint8))
+    sizes = torch.tensor([[32, 48]] * 5, dtype=torch.int32)
+    params = ta.draw_aug_params(torch.Generator().manual_seed(8), 5, 15.0, 1 / 1.5, 1.5, black_white)
+    drawn = ta.augment_batch(imgs, sizes, 15.0, 1 / 1.5, 1.5, black_white,
+                             generator=torch.Generator().manual_seed(8))
+    given = ta.augment_batch(imgs, sizes, 15.0, 1 / 1.5, 1.5, black_white, params=params)
+    for k in ("images", "masks", "thetas", "scales"):
+        assert torch.equal(drawn[k], given[k]), k
+    for k in ("brightness", "contrast"):
+        assert float(params[k].min()) >= 1 - black_white and float(params[k].max()) <= 1 + black_white
+    assert float(params["thetas"].abs().max()) <= np.radians(15.0)
+
+
 def test_warp_target_map_exact():
     rng = np.random.default_rng(4)
     tm = rng.normal(size=(6, 12, 16, 3)).astype(np.float32)

@@ -29,6 +29,8 @@ def test_default_runs_every_phase():
     ("render", ["device", "bare", "render"]),
     ("report,render,build", ["device", "build", "bare", "render", "report"]),
     ("bare", ["device", "bare"]),
+    ("pretrain", ["device", "pretrain"]),
+    ("report,pretrain,spill,build", ["device", "build", "spill", "pretrain", "report"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -67,7 +69,7 @@ def test_k1_cases_cover_the_tile_edges():
     tiles = {-(-B // 64) for B, _ in cases.values()}
     assert any(t > 2 * chip_smoke.H100_SMS and t % chip_smoke.H100_SMS for t in tiles)
     assert any(B > 2 * chip_smoke.H100_SMS * 64 and B % 64 for B, _ in cases.values())
-    assert set(chip_smoke.K1_TIMED) == {"registration", "mapping", "B64", "fill132"}
+    assert set(chip_smoke.K1_TIMED) == {"registration", "mapping", "B64", "fill132", "pretrain"}
     assert chip_smoke.K1_TOL == 1e-2
 
 
@@ -134,7 +136,8 @@ def test_new_phases_after_pipeline_in_order():
     of 60 under the JAX package's rate, and seeddepth holds the JAX
     package's statistics within 0.01."""
     phases = list(chip_smoke.PHASES)
-    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "spill", "report"]
+    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "spill", "pretrain",
+                                                 "report"]
     n = chip_smoke.N_FRAMES
     assert round(chip_smoke.BARE_SHARE * n) == round(chip_smoke.BARE_JAX_RATE * n) - 3 == 16
     assert chip_smoke.BARE_SHARE == 16 / n  # a frame count: 16 registered frames reach it exactly
@@ -166,3 +169,43 @@ def test_ply_header_counts(tmp_path):
 
     write_ply_mesh(tmp_path / "m.ply", np.zeros((10, 3)), np.zeros((12, 3), np.int64), np.zeros((10, 3)))
     assert chip_smoke.ply_header_counts(tmp_path / "m.ply") == {"vertex": 10, "face": 12}
+
+
+def test_pretrain_phase_constants():
+    """Phase pretrain: the encoder CLI at its default widths with the v6
+    recipe's contrastive weight and 1,200 steps, the depth CLI on the v4
+    corpus cut to 8 scenes and 500 steps, the short fit cut to 1,000
+    iterations; K1 and K2 held at the pretraining shape (one 192 x 256 image,
+    head_blocks 0) and timed there."""
+    assert chip_smoke.PRETRAIN_ARGS == ["--contrastive_weight", "0.2", "--steps", "1200"]
+    assert chip_smoke.DEPTH_PRETRAIN == {"corpus": "v4", "num_scenes": 8, "steps": 500}
+    assert chip_smoke.SHORTFIT_ITERATIONS == 1000 and chip_smoke.MATCH_TOL_PP == 1.0
+    assert 70.0 < chip_smoke.MATCH_JAX_V6 < 90.0 and chip_smoke.PRETRAIN_CPU_STEPS == 3
+    assert chip_smoke.PRETRAIN_CPU_RTOL == 5e-3
+    for cases, timed in ((chip_smoke.K1_CASES, chip_smoke.K1_TIMED), (chip_smoke.K2_CASES, chip_smoke.K2_TIMED)):
+        assert ("pretrain", 768, (0, 0, 1, 0, 0)) in cases and "pretrain" in timed
+
+
+def test_pretrain_draws_drive_a_chunk_on_the_cpu():
+    """The card-against-CPU draws: contrastive pairs and augmentation in
+    range, and a step on the CPU from them finite."""
+    import torch
+
+    from acezero_tpu_torch.models.head import HeadConfig
+    from acezero_tpu_torch.pretrain import encoder_pretrain as tep
+    from acezero_tpu_torch.training.optim import adamw_init
+
+    cfg = tep.PretrainConfig(num_scenes=2, views_per_scene=8, image_h=48, image_w=64, batch_images=4,
+                             contrastive_weight=0.2)
+    draws = chip_smoke.pretrain_draws(torch, tep, cfg, 16, 2, seed=1305)
+    assert len(draws) == 2 and all(d["batch_idx"].shape == (4,) for d in draws)
+    for d in draws:
+        pairs = d["batch_idx"].reshape(-1, 2)
+        assert (pairs // 8)[:, 0].eq((pairs // 8)[:, 1]).all()
+        assert d["aug"]["thetas"].abs().max() <= 15.0 * 3.1416 / 180 and d["aug"]["scales"].min() >= 2 / 3
+    corpus = tep.build_corpus(cfg, workers=1)
+    p = tep.init_params(cfg, corpus)
+    _, _, st = tep.pretrain_chunk(p, (adamw_init(p["encoder"]), adamw_init(p["heads"])),
+                                  tep.corpus_to_device(corpus, cfg, "cpu"), 0, cfg, HeadConfig(num_head_blocks=0),
+                                  draws=draws)
+    assert all(torch.isfinite(v).all() and v.shape == (2,) for v in st.values())

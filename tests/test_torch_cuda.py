@@ -263,3 +263,61 @@ def test_regressor_equals_predict_coords_on_the_card(cuda):
         got = reg.forward(normalize_images(torch.from_numpy(canvases).to(cuda))).cpu().numpy()
     assert fh.LAUNCHES == before + 2
     assert np.array_equal(got, want) and np.isfinite(got).all()
+
+
+def test_pretrain_steps_card_match_cpu_with_one_head_launch_per_image(cuda):
+    """Two encoder-pretraining steps past the warm-up (exact supervision,
+    contrastive pairs, augmentation) and two seed-depth steps from the same
+    parameters and draws on the card and on the CPU: every loss term within
+    chip_smoke's PRETRAIN_CPU_RTOL, each tree's update within its
+    PRETRAIN_UPDATE_TOL, and K1 and K2 launched once an image a step."""
+    from acezero_tpu_torch.models import torch_io
+    from acezero_tpu_torch.models.depthnet import init_depth_head_params
+    from acezero_tpu_torch.models.head import HeadConfig
+    from acezero_tpu_torch.pretrain import depth_pretrain as tdp
+    from acezero_tpu_torch.pretrain import encoder_pretrain as tep
+    from acezero_tpu_torch.training.optim import adamw_init, tree_leaves, tree_unflatten
+
+    def to(tree, dev):
+        return tree_unflatten(tree, [t.to(dev) for t in tree_leaves(tree)])
+
+    cfg = tep.PretrainConfig(num_scenes=2, views_per_scene=12, image_h=96, image_w=128, batch_images=4,
+                             contrastive_weight=0.2, across_frac=1.0)
+    corpus = tep.build_corpus(cfg, workers=1)
+    params = tep.init_params(cfg, corpus)
+    draws = chip_smoke.pretrain_draws(torch, tep, cfg, len(corpus["images_u8"]), 2, seed=7)
+    stats, after, launches = {}, {}, None
+    for dev in (cuda, torch.device("cpu")):
+        p = to(params, dev)
+        before = (fh.LAUNCHES, fh.LAUNCHES_BWD)
+        after[dev.type], _, st = tep.pretrain_chunk(
+            p, (adamw_init(p["encoder"]), adamw_init(p["heads"])), tep.corpus_to_device(corpus, cfg, dev),
+            chip_smoke.PRETRAIN_CPU_STEP0, cfg, HeadConfig(num_head_blocks=0), draws=draws)
+        stats[dev.type] = {k: v.cpu() for k, v in st.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = (fh.LAUNCHES - before[0], fh.LAUNCHES_BWD - before[1])
+    assert launches == (2 * cfg.batch_images, 2 * cfg.batch_images)
+    for k in tep.STATS:
+        card, cpu = stats["cuda"][k], stats["cpu"][k]
+        assert torch.isfinite(card).all()
+        assert ((card - cpu).abs() <= chip_smoke.PRETRAIN_CPU_RTOL * cpu.abs().clamp(min=1e-6)).all(), (k, card, cpu)
+    for t in ("encoder", "heads"):
+        upd = chip_smoke.rel_update(torch, tree_leaves, after["cuda"][t], params[t], after["cpu"][t])
+        assert upd <= chip_smoke.PRETRAIN_UPDATE_TOL, (t, upd)
+
+    dcfg = tdp.DepthPretrainConfig(num_scenes=2, views_per_scene=4, image_h=96, image_w=128, batch_images=4, steps=2)
+    images, gt = tdp.build_depth_corpus(dcfg)
+    order = np.random.default_rng(dcfg.seed).integers(0, len(images), (2, dcfg.batch_images))
+    init = init_depth_head_params(torch.Generator().manual_seed(dcfg.seed))
+    losses, heads = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        p = to(init, dev)
+        heads[dev.type], _, l = tdp.train_chunk(p, adamw_init(p), torch_io.load_encoder(chip_smoke.ENCODER, dev),
+                                  torch.from_numpy(images).to(dev), torch.from_numpy(gt).to(dev),
+                                  torch.from_numpy(order).to(dev), tdp.lr_table(dcfg), dcfg.silog_lambda,
+                                  dcfg.grad_loss_weight)
+        losses[dev.type] = l.cpu()
+    assert ((losses["cuda"] - losses["cpu"]).abs() <= chip_smoke.PRETRAIN_CPU_RTOL * losses["cpu"].abs()).all()
+    upd = chip_smoke.rel_update(torch, tree_leaves, heads["cuda"], init, heads["cpu"])
+    assert upd <= chip_smoke.PRETRAIN_UPDATE_TOL, upd
