@@ -131,73 +131,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--num_devices",
         type=int,
         default=0,
-        help="device-mesh size: 0 = all visible devices, 1 = single device, "
-        "N > 1 = 1-D data mesh over the first N devices (name parity: the port runs on --device)",
+        help="device-mesh size: 0 or 1 = single device (the JAX package's 0 takes every device), "
+        "N > 1 = 1-D data mesh over the first N cards (clamped to the visible ones; it starts at cuda:0, "
+        "which --device must name; on --device cpu there is no mesh)",
     )
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; the CPU runs only when asked for")
     return parser
-
-
-def config_from_args(args: argparse.Namespace) -> AceZeroConfig:
-    return AceZeroConfig(
-        rgb_files=args.rgb_files,
-        results_folder=args.results_folder,
-        depth_files=args.depth_files,
-        calibration_files=args.calibration_files,
-        iterations_max=args.iterations_max,
-        registration_threshold=args.registration_threshold,
-        relative_registration_threshold=args.relative_registration_threshold,
-        final_refine=args.final_refine,
-        final_refit=args.final_refit,
-        final_refit_posewait=args.final_refit_posewait,
-        final_refit_cycles=args.final_refit_cycles,
-        refit_iterations=args.refit_iterations,
-        loop_closure=args.loop_closure,
-        loop_closure_max_frames=args.loop_closure_max_frames,
-        loop_closure_probe_frames=args.loop_closure_probe_frames,
-        adaptive_refit_max_cycles=args.adaptive_refit_max_cycles,
-        loopclose_refit_freeze_poses=args.loopclose_refit_freeze_poses,
-        registration_confidence=args.registration_confidence,
-        try_seeds=args.try_seeds,
-        seed_iterations=args.seed_iterations,
-        seed_selection_iterations=args.seed_selection_iterations,
-        seed_selection_frames=args.seed_selection_frames,
-        seed_selection_min_frames=args.seed_selection_min_frames,
-        seed_network=args.seed_network,
-        warmstart=args.warmstart,
-        export_point_cloud=args.export_point_cloud,
-        dense_point_cloud=args.dense_point_cloud,
-        refinement=args.refinement,
-        refinement_ortho=args.refinement_ortho,
-        pose_refinement_wait=args.pose_refinement_wait,
-        pose_refinement_lr=args.pose_refinement_lr,
-        refine_calibration=args.refine_calibration,
-        use_external_focal_length=args.use_external_focal_length,
-        learning_rate_schedule=args.learning_rate_schedule,
-        learning_rate_max=args.learning_rate_max,
-        cooldown_iterations=args.cooldown_iterations,
-        cooldown_threshold=args.cooldown_threshold,
-        iterations=args.iterations,
-        image_resolution=args.image_resolution,
-        num_head_blocks=args.num_head_blocks,
-        max_dataset_passes=args.max_dataset_passes,
-        repro_loss_type=args.repro_loss_type,
-        repro_loss_hard_clamp=args.repro_loss_hard_clamp,
-        repro_loss_soft_clamp=args.repro_loss_soft_clamp,
-        aug_rotation=args.aug_rotation,
-        aug_black_white=args.aug_black_white,
-        training_buffer_cpu=args.training_buffer_cpu,
-        ransac_iterations=args.ransac_iterations,
-        ransac_threshold=args.ransac_threshold,
-        render_visualization=args.render_visualization,
-        render_marker_size=args.render_marker_size,
-        random_seed=args.random_seed,
-        iterations_output=args.iterations_output,
-        encoder_path=args.encoder_path,
-        depth_network=args.depth_network,
-        num_devices=args.num_devices,
-    )
 
 
 def config_from_args(args: argparse.Namespace) -> AceZeroConfig:

@@ -15,6 +15,7 @@ epilogue stay outside (`models/head.py`).
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -27,9 +28,11 @@ CHANNELS = 512
 TILE_ROWS = 64  # rows of x per tile of either kernel
 
 # Kernel launches made by `fused_head_chain` / `fused_head_chain_backward`
-# in this process.
+# in this process, in all and by CUDA device index.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BY_DEVICE: Counter = Counter()
+LAUNCHES_BWD_BY_DEVICE: Counter = Counter()
 
 
 def _chain_layers(params: dict) -> list:
@@ -131,6 +134,7 @@ def fused_head_chain(x, w_stack, b_stack, res_after):
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
     global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_BY_DEVICE[x.device.index] += 1
     return out
 
 
@@ -219,6 +223,7 @@ def fused_head_chain_backward(x, w_stack, b_stack, g, res_after):
         raise RuntimeError(f"{KERNEL_BWD} launch failed: CUDA error {rc}")
     global LAUNCHES_BWD
     LAUNCHES_BWD += 1
+    LAUNCHES_BWD_BY_DEVICE[x.device.index] += 1
     return dx, gpre, acts_in
 
 

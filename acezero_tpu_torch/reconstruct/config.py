@@ -123,8 +123,9 @@ class AceZeroConfig:
     # steps per host sync group of the trainer (TrainConfig.chunk_steps);
     # the trainer syncs every chunk_steps * sync_every_chunks steps
     chunk_steps: int = 500
-    # name parity only: the port runs on one device (the pipeline's
-    # `device` argument); parallel/mesh.py is not ported
+    # data-mesh size (parallel/mesh.py; reconstruct/pipeline.py::pipeline_mesh):
+    # N > 1 = the first N cards (clamped), 0 or 1 = one device (the JAX
+    # package's 0 is every device)
     num_devices: int = 0
     num_decode_workers: int = 16
     # the decoded-canvas cache (data/images.py; None turns it off): a

@@ -35,6 +35,17 @@ steps of each main-loop round, and the final 150-frame sweep, then
 `reconstruction.mp4` when ffmpeg is present; each hook is timed as stage
 `render`, which is carved out of the stage it runs in. `prewarm` does
 nothing: it hides XLA compile latency, which the port does not have.
+
+The data mesh (parallel/mesh.py) is built for `num_devices` N > 1 only: the
+first N visible cards (clamped to them; fewer than two means no mesh). 0
+means one device here, where the JAX package takes every visible device:
+on several cards the mesh is still slower than one card. The mesh shards
+the buffer rows of the seed map of `_map_seed` (not the seed lanes of
+`_map_seeds_parallel`), of each mapping round and of the final refit, and
+the frames of seed scoring and of every registration round; loop closure,
+export and the visualizer run on the primary. `mesh=` passes a mesh
+instead of the rule (the CPU tests pass a logical one: torch has one CPU
+device).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from acezero_tpu_torch.io.pose_files import PoseFileEntry, get_files_from_glob, 
 from acezero_tpu_torch.models import torch_io
 from acezero_tpu_torch.models.encoder import init_encoder_params
 from acezero_tpu_torch.models.head import HeadConfig
+from acezero_tpu_torch.parallel.mesh import Mesh, make_mesh
 from acezero_tpu_torch.reconstruct.config import AceZeroConfig
 from acezero_tpu_torch.reconstruct.loopclose import LoopCloseConfig, loop_close_entries
 from acezero_tpu_torch.registration.driver import RegistrationConfig, register_frames, register_frames_multi
@@ -77,11 +89,30 @@ SHIPPED_ENCODERS = ("tpu_encoder_v6.pt", "tpu_encoder_v5.pt", "tpu_encoder_v2.pt
 SHIPPED_DEPTH_HEADS = ("tpu_depth_v4.pt", "tpu_depth_v3.pt", "tpu_depth_v1.pt")
 
 
+def pipeline_mesh(num_devices: int, device: torch.device) -> Mesh | None:
+    """The data mesh of `num_devices`: the first N visible cards for N > 1
+    (clamped to them), else no mesh. Unlike the JAX rule, 0 means one
+    device, not every visible one: several cards map and register slower
+    than one (PERF.md). Only CUDA devices form a mesh (on the CPU there is
+    one device); it starts at cuda:0."""
+    if device.type != "cuda" or num_devices <= 1:
+        return None
+    n = min(num_devices, torch.cuda.device_count())
+    return make_mesh(n) if n > 1 else None
+
+
 class AceZeroPipeline:
     def __init__(self, cfg: AceZeroConfig, device=None, encoder_params: dict | None = None,
-                 depth_estimator: DepthEstimator | None = None):
+                 depth_estimator: DepthEstimator | None = None, mesh: Mesh | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else pipeline_mesh(cfg.num_devices, self.device)
+        if self.mesh is not None:
+            if self.device.type != self.mesh.primary.type or self.device.index not in (None, self.mesh.primary.index):
+                raise ValueError(f"the mesh's primary {self.mesh.primary} is not the pipeline's device "
+                                 f"{self.device}; pass --num_devices 1 to run on {self.device} alone")
+            self.device = self.mesh.primary
+            _logger.info("Using a %d-device data mesh: %s", self.mesh.size, [str(d) for d in self.mesh.devices])
         self.out = Path(cfg.results_folder)
         self.out.mkdir(parents=True, exist_ok=True)
 
@@ -232,15 +263,16 @@ class AceZeroPipeline:
             raise ValueError("Seed initialization needs depth: pass depth_files or a depth_estimator.")
         return depth_to_canvas(depth, (int(h), int(w)), self.scene.canvas_hw)
 
-    def _seed_trainer(self, frame: int, train_cfg: TrainConfig, base_seed: int) -> MappingTrainer:
+    def _seed_trainer(self, frame: int, train_cfg: TrainConfig, base_seed: int,
+                      mesh: Mesh | None = None) -> MappingTrainer:
         """A MappingTrainer on the one seed frame at the identity pose, with
-        its depth as supervision."""
+        its depth as supervision (sharded over `mesh` when given)."""
         seed_scene = self.scene.subset(np.asarray([frame]))
         seed_scene.poses_c2w = np.eye(4, dtype=np.float32)[None]
         seed_scene.pose_valid = np.ones(1, bool)
         seed_scene.depth_maps[0] = self._seed_depth_canvas(frame)
         return MappingTrainer(seed_scene, self.encoder_params, self.head_cfg, train_cfg, self._buffer_cfg(),
-                              base_seed=base_seed)
+                              base_seed=base_seed, mesh=mesh)
 
     def _save_seed(self, si: int, head_params: dict, entries: list[PoseFileEntry]) -> None:
         iteration_id = f"iteration0_seed{si}"
@@ -253,12 +285,12 @@ class AceZeroPipeline:
         frame = int(seed_value * len(self.scene))
         _logger.info("Mapping seed %d: frame %d (%s)", seed_idx, frame, self.scene.rgb_files[frame])
         trainer = self._seed_trainer(frame, self._base_train_cfg(cfg.seed_iterations, use_depth=True, refine=False),
-                                     cfg.base_seed + seed_idx)
+                                     cfg.base_seed + seed_idx, mesh=self.mesh)
         with stage("seed_mapping", trace=True):
             head_params = trainer.train()["head_params"]
         # fast seed scoring on <= 1000 frames (reference ace_zero_util.py:242-259)
         entries = register_frames(self.encoder_params, head_params, self.head_cfg, self.scene,
-                                  self._registration_cfg(max_estimates=1000), device=self.device)
+                                  self._registration_cfg(max_estimates=1000), device=self.device, mesh=self.mesh)
         self._save_seed(seed_idx, head_params, entries)
         rate = self._rate(entries)
         _logger.info("Seed %d registered %.1f%% of frames.", seed_idx, rate * 100)
@@ -307,7 +339,7 @@ class AceZeroPipeline:
         head_list = [st.head_params for st in states]
         with stage("seed_scoring"):
             all_entries = register_frames_multi(self.encoder_params, head_list, self.head_cfg, self.scene,
-                                                score_cfg, device=self.device)
+                                                score_cfg, device=self.device, mesh=self.mesh)
         rates = [self._rate(entries) for entries in all_entries]
 
         if do_select:
@@ -333,7 +365,7 @@ class AceZeroPipeline:
         with stage("registration", trace=True):
             entries = register_frames(self.encoder_params, head_params, self.head_cfg, self.scene,
                                       self._registration_cfg(), focal_override_orig=focal_override,
-                                      device=self.device)
+                                      device=self.device, mesh=self.mesh)
         with stage("artifacts"):
             write_pose_file(self.out / f"poses_{iteration_id}.txt", entries)
         if self.visualizer is not None:
@@ -465,7 +497,7 @@ class AceZeroPipeline:
         with stage("mapping", trace=True):
             trainer = MappingTrainer(mapping_scene, self.encoder_params, self.head_cfg, train_cfg,
                                      self._buffer_cfg(), head_params=init_head, base_seed=base_seed,
-                                     frame_callback=frame_callback)
+                                     frame_callback=frame_callback, mesh=self.mesh)
             return trainer.train()
 
     def run(self) -> dict:

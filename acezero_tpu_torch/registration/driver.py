@@ -17,6 +17,17 @@ more pass with four times the tries.
 maps) with one encoder pass per chunk and one registrar solve per head, at
 the full refit budget, without the tiers and the retry, as in the JAX
 package.
+
+With a mesh both shard the frame axis, as in the JAX package: the chunk is
+rounded up to a multiple of the mesh size and split by position over the
+devices (`parallel.mesh.split_positions`); each device runs the encoder,
+the head (K1) and the registrar on its frames against replicas of the
+parameters. A chunk's hypothesis indices are drawn once on the primary
+from the whole chunk's cell mask, in frame order, so the generator's stream
+is the one device's; each device then takes its frames' draws. The tier-2
+rerun and the sampling-failure retry split their chunks the same way. A
+chunk whose rounded length differs from one device's (64 frames on 3
+devices: 66) draws differently.
 """
 
 from __future__ import annotations
@@ -36,11 +47,13 @@ from acezero_tpu_torch.geometry.projection import get_pixel_grid
 from acezero_tpu_torch.io.pose_files import PoseFileEntry
 from acezero_tpu_torch.models.encoder import encoder_apply
 from acezero_tpu_torch.models.head import HeadConfig, head_apply_image
+from acezero_tpu_torch.parallel.mesh import Mesh, split_positions
 from acezero_tpu_torch.registration.ransac import (
     RansacConfig,
     draw_hypothesis_indices,
     estimate_poses_batch,
 )
+from acezero_tpu_torch.training.optim import tree_leaves, tree_unflatten
 
 _logger = logging.getLogger(__name__)
 
@@ -99,6 +112,40 @@ def _chunk_images(scene: SceneData, idx, device):
     return images, sizes
 
 
+def _lanes(encoder_params, heads, device, mesh: Mesh | None) -> list:
+    """(device, encoder parameters, heads) of each device that registers
+    frames: one lane on `device` without a mesh, one per mesh device with
+    one. Registration only reads the parameters, so a lane on the primary
+    uses them as they are (`.to` of a tensor already there returns it) and
+    only other devices get a copy."""
+    if mesh is None:
+        return [(device, encoder_params, heads)]
+
+    def on(tree, dev):
+        return tree_unflatten(tree, [t.to(dev) if torch.is_tensor(t) else t for t in tree_leaves(tree)])
+
+    return [(dev, on(encoder_params, dev), on(heads, dev)) for dev in mesh.devices]
+
+
+def _spans(n: int, mesh: Mesh | None) -> list[tuple[int, int]]:
+    """[lo, hi) of each lane's frames of an n-frame chunk (empty spans kept:
+    they line up with the lanes)."""
+    return [(0, n)] if mesh is None else split_positions(n, mesh)
+
+
+def _draw(coords: list, spans: list, device, cfg: RansacConfig, generator) -> torch.Tensor:
+    """One draw of the chunk's hypothesis indices on `device` from the lanes'
+    cell masks (`coords[d][1]`, None for a lane without frames) put back in
+    frame order: the one-device draw."""
+    mask = torch.cat([c[1].reshape(hi - lo, -1).to(device) for c, (lo, hi) in zip(coords, spans) if c is not None])
+    return draw_hypothesis_indices(mask, cfg.hypotheses, cfg.max_tries, generator)
+
+
+def _frame_chunk(cfg: RegistrationConfig, mesh: Mesh | None) -> int:
+    """The chunk length: rounded up to a multiple of the mesh size."""
+    return cfg.frame_chunk if mesh is None else -(-cfg.frame_chunk // mesh.size) * mesh.size
+
+
 def _entry(rgb_file: str, pose_c2w: np.ndarray, focal_orig: float, conf) -> PoseFileEntry:
     return PoseFileEntry(rgb_file=rgb_file, pose_w2c=np.linalg.inv(pose_c2w.astype(np.float64)),
                          focal_length=float(focal_orig), confidence=float(conf))
@@ -112,6 +159,7 @@ def register_frames_multi(
     cfg: RegistrationConfig,
     device=None,
     hyp_indices: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ) -> list[list[PoseFileEntry]]:
     """Register the scene's frames against several heads; one entry list per
     head, in the same frame order.
@@ -119,32 +167,41 @@ def register_frames_multi(
     Each chunk runs the encoder once and every head's chain (through K1 on
     the card), then one registrar solve per head at the full refit budget.
     hyp_indices (S, frames, H, T, 4), indexed by head and scene frame,
-    replaces the generator's draws.
+    replaces the generator's draws. With a mesh (whose primary replaces
+    `device`) each chunk's frames are split over its devices.
     """
-    device = resolve_device(device)
+    device = mesh.primary if mesh is not None else resolve_device(device)
     S = len(head_params_list)
     order = _frame_order(len(scene), cfg)
     generator = torch.Generator(device=device).manual_seed(cfg.base_seed + 0x9E37)
     H, W = scene.images.canvas_hw
-    grid = get_pixel_grid(H // 8, W // 8, 8, device=device)
+    lanes = _lanes(encoder_params, head_params_list, device, mesh)
+    grids = [get_pixel_grid(H // 8, W // 8, 8, device=dev) for dev, _, _ in lanes]
+    chunk = _frame_chunk(cfg, mesh)
     results: list[list[PoseFileEntry]] = [[] for _ in range(S)]
     t0 = time.time()
-    for c0 in range(0, len(order), cfg.frame_chunk):
-        idx = order[c0 : c0 + cfg.frame_chunk]
-        coords, mask_lr = coords_chunk_multi(encoder_params, head_params_list, head_cfg,
-                                             *_chunk_images(scene, idx, device))
-        focals = torch.as_tensor(scene.focals_canvas[idx], dtype=torch.float32, device=device)
-        ppx = torch.full((len(idx),), W / 2.0, device=device)
-        ppy = torch.full((len(idx),), H / 2.0, device=device)
+    for c0 in range(0, len(order), chunk):
+        idx = order[c0 : c0 + chunk]
+        spans = _spans(len(idx), mesh)
+        # every lane's encoder and heads before any registrar, which syncs
+        coords = [coords_chunk_multi(enc, heads, head_cfg, *_chunk_images(scene, idx[lo:hi], dev))
+                  if hi > lo else None for (dev, enc, heads), (lo, hi) in zip(lanes, spans)]
         for s in range(S):
             if hyp_indices is None:
-                draws = draw_hypothesis_indices(mask_lr.reshape(len(idx), -1), cfg.ransac.hypotheses,
-                                                cfg.ransac.max_tries, generator)
+                draws = _draw(coords, spans, device, cfg.ransac, generator)
             else:
                 draws = hyp_indices[s][torch.as_tensor(idx)].to(device)
-            out = estimate_poses_batch(coords[s], mask_lr, grid, focals, ppx, ppy, cfg.ransac,
-                                       cfg.ransac.refinement_steps, hyp_indices=draws)
-            poses, confs = out["pose_c2w"].cpu().numpy(), out["inlier_count"].cpu().numpy()
+            outs = []
+            for (dev, _, _), grid, (lo, hi), c in zip(lanes, grids, spans, coords):
+                if hi == lo:
+                    continue
+                focals = torch.as_tensor(scene.focals_canvas[idx[lo:hi]], dtype=torch.float32, device=dev)
+                out = estimate_poses_batch(
+                    c[0][s], c[1], grid, focals, torch.full((hi - lo,), W / 2.0, device=dev),
+                    torch.full((hi - lo,), H / 2.0, device=dev), cfg.ransac, cfg.ransac.refinement_steps,
+                    hyp_indices=draws[lo:hi].to(dev))
+                outs.append((out["pose_c2w"].cpu().numpy(), out["inlier_count"].cpu().numpy()))
+            poses, confs = (np.concatenate(x) for x in zip(*outs))
             for j, i in enumerate(idx):
                 results[s].append(_entry(scene.rgb_files[i], poses[j], scene.focals_orig[i], confs[j]))
     _logger.info("Registered %d frames x %d maps in %.1fs", len(order), S, time.time() - t0)
@@ -160,6 +217,7 @@ def register_frames(
     focal_override_orig: float | None = None,
     device=None,
     hyp_indices: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ) -> list[PoseFileEntry]:
     """Register every frame of the scene; returns pose-file entries.
 
@@ -168,9 +226,11 @@ def register_frames(
     Parameters must already be on `device` (default cuda). hyp_indices
     (frames, H, T, 4), indexed by scene frame, replaces the generator's
     draws of pass 1 (and so of the tier-2 rerun); the sampling-failure retry
-    always draws from the generator, seeded from `cfg.base_seed`.
+    always draws from the generator, seeded from `cfg.base_seed`. With a
+    mesh (whose primary replaces `device`) each chunk's frames are split
+    over its devices; the draws stay those of one device.
     """
-    device = resolve_device(device)
+    device = mesh.primary if mesh is not None else resolve_device(device)
     n = len(scene)
     order = _frame_order(n, cfg)
     if focal_override_orig is not None:
@@ -184,22 +244,31 @@ def register_frames(
     tiered = 0 < cfg.refit_tier1 < full_steps
     pass1_steps = cfg.refit_tier1 if tiered else full_steps
     H, W = scene.images.canvas_hw
-    grid = get_pixel_grid(H // 8, W // 8, 8, device=device)
-    chunk = cfg.frame_chunk
+    lanes = _lanes(encoder_params, head_params, device, mesh)
+    grids = [get_pixel_grid(H // 8, W // 8, 8, device=dev) for dev, _, _ in lanes]
+    chunk = _frame_chunk(cfg, mesh)
 
     def run(idx, ransac_cfg, max_steps, draws):
-        coords, mask_lr = coords_chunk(encoder_params, head_params, head_cfg, *_chunk_images(scene, idx, device))
+        """(outputs as numpy in frame order, the chunk's draws on `device`)."""
+        spans = _spans(len(idx), mesh)
+        # every lane's encoder and head before any registrar, which syncs
+        coords = [coords_chunk(enc, head, head_cfg, *_chunk_images(scene, idx[lo:hi], dev)) if hi > lo else None
+                  for (dev, enc, head), (lo, hi) in zip(lanes, spans)]
         if draws is None:
-            draws = draw_hypothesis_indices(mask_lr.reshape(len(idx), -1), ransac_cfg.hypotheses,
-                                            ransac_cfg.max_tries, generator)
-        out = estimate_poses_batch(
-            coords, mask_lr, grid,
-            torch.as_tensor(focals_canvas[idx], dtype=torch.float32, device=device),
-            torch.full((len(idx),), W / 2.0, device=device),
-            torch.full((len(idx),), H / 2.0, device=device),
-            ransac_cfg, max_steps, hyp_indices=draws,
-        )
-        return {k: v.cpu().numpy() for k, v in out.items()}, draws
+            draws = _draw(coords, spans, device, ransac_cfg, generator)
+        outs = []
+        for (dev, _, _), grid, (lo, hi), c in zip(lanes, grids, spans, coords):
+            if hi == lo:
+                continue
+            out = estimate_poses_batch(
+                c[0], c[1], grid,
+                torch.as_tensor(focals_canvas[idx[lo:hi]], dtype=torch.float32, device=dev),
+                torch.full((hi - lo,), W / 2.0, device=dev),
+                torch.full((hi - lo,), H / 2.0, device=dev),
+                ransac_cfg, max_steps, hyp_indices=draws[lo:hi].to(dev),
+            )
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}, draws
 
     def entry(i, pose_c2w, conf):
         return _entry(scene.rgb_files[i], pose_c2w, focals_orig[i], conf)

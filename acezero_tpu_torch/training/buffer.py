@@ -61,8 +61,10 @@ def next_bucket(n: int, minimum: int = 1) -> int:
 
 
 def buffer_alloc_rows(cfg: BufferConfig, num_images: int, pad_rows_to_bucket: bool = True) -> tuple[int, int]:
-    """(total_rows, allocated_rows) of a fill (the JAX package's mesh
-    alignment `devices_pad` has no counterpart yet)."""
+    """(total_rows, allocated_rows) of a fill. The JAX package's mesh
+    alignment `devices_pad` has no counterpart here: with a mesh,
+    `MappingTrainer.build_buffer` truncates the filled rows to a multiple
+    of its size, where the JAX trainer truncates them."""
     total, _ = plan_buffer_size(cfg, num_images)
     total = (total // cfg.samples_per_image) * cfg.samples_per_image
     alloc = next_bucket(total, 4096) if pad_rows_to_bucket else total

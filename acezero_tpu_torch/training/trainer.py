@@ -52,6 +52,7 @@ from acezero_tpu_torch.data.scene import SceneData
 from acezero_tpu_torch.geometry.rotations import special_gramschmidt, special_procrustes
 from acezero_tpu_torch.models.head import HeadConfig, head_apply_flat, init_head_params
 from acezero_tpu_torch.models.posenet import init_posenet_params, posenet_apply
+from acezero_tpu_torch.parallel.mesh import Mesh, broadcast_, gather_rows, reduce_sum, replicate, shard_rows
 from acezero_tpu_torch.training.buffer import BufferConfig, fill_training_buffer
 from acezero_tpu_torch.training.loss import ReproLossConfig, loss_hp, repro_loss_hp
 from acezero_tpu_torch.training.optim import AdamWState, adamw_init, adamw_update, tree_leaves, tree_unflatten
@@ -149,12 +150,14 @@ def _rotz(theta: torch.Tensor) -> torch.Tensor:
 
 
 def _loss_fn(trainable: tuple, batch: dict, ctx: dict, hp: dict, cfg: TrainConfig, head_cfg: HeadConfig,
-             iteration: torch.Tensor):
-    """(loss, {"batch_inliers"}) of one batch; differentiable in `trainable`
-    = (head_params, pose_params, focal_g)."""
+             iteration: torch.Tensor, batch_size: int | None = None):
+    """(loss, {"batch_inliers", "inliers"}) of one batch; differentiable in
+    `trainable` = (head_params, pose_params, focal_g). The sums are divided
+    by `batch_size`, by default the batch's own row count; a mesh part passes
+    the global batch size, so that the parts' losses add up to the batch's."""
     head_params, pose_params, focal_g = trainable
     pred = head_apply_flat(head_params, head_cfg, batch["features"])  # (B, 3) f32
-    B = pred.shape[0]
+    B = pred.shape[0] if batch_size is None else batch_size
 
     w2c_rows = ctx["poses_w2c"][batch["img_idx"]]
     w2c_ref = _refined_w2c(cfg, pose_params, w2c_rows, batch["img_idx"])
@@ -200,7 +203,7 @@ def _loss_fn(trainable: tuple, batch: dict, ctx: dict, hp: dict, cfg: TrainConfi
         loss_invalid = torch.sum(torch.sum(torch.abs(target_cam - p_cam), dim=-1) * invalid.to(torch.float32))
 
     loss = (loss_valid + loss_invalid) / B
-    return loss, {"batch_inliers": batch_inliers}
+    return loss, {"batch_inliers": batch_inliers, "inliers": inliers}
 
 
 def _with_grad(tree):
@@ -208,24 +211,65 @@ def _with_grad(tree):
     return tree_unflatten(tree, [t.detach().requires_grad_(True) for t in tree_leaves(tree)])
 
 
-def loss_and_grads(state: TrainState, batch: dict, ctx: dict, hp: dict, cfg: TrainConfig,
-                   head_cfg: HeadConfig):
-    """(loss, aux, (g_head, g_pose, g_focal)) at the state's parameters."""
-    trainable = (_with_grad(state.head_params), _with_grad(state.pose_params),
-                 state.focal_g.detach().requires_grad_(True))
+def _trainable(state: TrainState) -> tuple:
+    """What a mesh device needs of the state for its part's loss and
+    gradients: the parameters and the iteration."""
+    return state.head_params, state.pose_params, state.focal_g, state.iteration
+
+
+def _part_loss_and_grads(params: tuple, batch: dict, ctx: dict, hp: dict, cfg: TrainConfig, head_cfg: HeadConfig,
+                         batch_size: int | None = None):
+    """(loss, aux, (g_head, g_pose, g_focal)) of a batch at `params` =
+    `_trainable(state)`, all on the batch's device."""
+    head_params, pose_params, focal_g, iteration = params
+    trainable = (_with_grad(head_params), _with_grad(pose_params), focal_g.detach().requires_grad_(True))
     leaves = tree_leaves(trainable)
     with torch.enable_grad():
-        loss, aux = _loss_fn(trainable, batch, ctx, hp, cfg, head_cfg, state.iteration)
+        loss, aux = _loss_fn(trainable, batch, ctx, hp, cfg, head_cfg, iteration, batch_size)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), aux, tree_unflatten(trainable, grads)
 
 
+def loss_and_grads(state: TrainState, batch: dict, ctx: dict, hp: dict, cfg: TrainConfig,
+                   head_cfg: HeadConfig):
+    """(loss, aux, (g_head, g_pose, g_focal)) at the state's parameters."""
+    return _part_loss_and_grads(_trainable(state), batch, ctx, hp, cfg, head_cfg)
+
+
 def train_step(state: TrainState, batch: dict, ctx: dict, hp: dict, cfg: TrainConfig,
                head_cfg: HeadConfig) -> tuple[TrainState, dict]:
     """One step; every gate is a device tensor (no host sync)."""
+    loss, aux, grads = loss_and_grads(state, batch, ctx, hp, cfg, head_cfg)
+    return _apply_step(state, loss, aux["batch_inliers"], grads, hp, cfg)
+
+
+def train_step_mesh(state: TrainState, replicas: list, parts: list, ctxs: list, hp: dict, cfg: TrainConfig,
+                    head_cfg: HeadConfig, mesh: Mesh) -> tuple[TrainState, dict]:
+    """One data-parallel step: `parts` is the batch split by position over the
+    mesh (`gather_rows`), `replicas` and `ctxs` hold each device's copy of
+    `_trainable(state)` and of the context. Every device's part is
+    dispatched before anything waits: its loss (its sums over the global
+    batch size) and gradients at its replica, K1 and K2 on its device. The
+    losses, inlier counts and gradients are summed on the primary in device
+    order, so the finite gate and the cooldown statistic are global; AdamW
+    and the schedule step once there, and the new parameters are copied
+    into the replicas. One part gives the bits of `train_step`."""
+    B = sum(p["features"].shape[0] for p in parts)
+    outs = [_part_loss_and_grads(rep, part, ctx, hp, cfg, head_cfg, batch_size=B)
+            for rep, part, ctx in zip(replicas, parts, ctxs) if part["features"].shape[0] > 0]
+    loss, inliers, grads = reduce_sum([(o[0], o[1]["inliers"], o[2]) for o in outs], mesh.primary)
+    state, stats = _apply_step(state, loss, inliers.to(torch.float32) / B, grads, hp, cfg)
+    broadcast_(replicas, _trainable(state))
+    return state, stats
+
+
+def _apply_step(state: TrainState, loss: torch.Tensor, batch_inliers: torch.Tensor, grads, hp: dict,
+                cfg: TrainConfig) -> tuple[TrainState, dict]:
+    """The optimizer and schedule half of a step, from the batch's loss,
+    inlier fraction and gradients."""
+    g_head, g_pose, g_focal = grads
     active = state.iteration < state.sched.max_iterations
-    loss, aux, (g_head, g_pose, g_focal) = loss_and_grads(state, batch, ctx, hp, cfg, head_cfg)
     finite = torch.isfinite(loss)
     do_update = active & finite
 
@@ -241,7 +285,7 @@ def train_step(state: TrainState, batch: dict, ctx: dict, hp: dict, cfg: TrainCo
         focal_g, focal_opt = adamw_update(state.focal_g, g_focal, state.focal_opt, hp["calib_lr"],
                                           enabled=do_update)
 
-    sched_new = schedule_update_hp(hp["sched"], state.sched, state.iteration, aux["batch_inliers"])
+    sched_new = schedule_update_hp(hp["sched"], state.sched, state.iteration, batch_inliers)
     sched = ScheduleState(*(torch.where(active, n, o) for n, o in zip(sched_new, state.sched)))
     new_state = TrainState(
         head_params=head_params, head_opt=head_opt, pose_params=pose_params, pose_opt=pose_opt,
@@ -251,7 +295,7 @@ def train_step(state: TrainState, batch: dict, ctx: dict, hp: dict, cfg: TrainCo
     )
     stats = {
         "loss": torch.where(active, loss, torch.full_like(loss, float("nan"))),
-        "batch_inliers": aux["batch_inliers"],
+        "batch_inliers": batch_inliers,
         "lr": lr,
         "active": active,
     }
@@ -335,17 +379,29 @@ class _HostBatches:
         self.pool.shutdown(wait=True)
 
 
-def train_steps(state: TrainState, buffer: dict, ctx: dict, hp: dict, cfg: TrainConfig,
+def train_steps(state: TrainState, buffer, ctx, hp: dict, cfg: TrainConfig,
                 head_cfg: HeadConfig, num_steps: int, generator: torch.Generator | None = None,
-                batch_indices=None) -> tuple[TrainState, dict]:
+                batch_indices=None, mesh: Mesh | None = None) -> tuple[TrainState, dict]:
     """`num_steps` steps on batches of rows drawn uniformly (with
     replacement) from the buffer, or given as `batch_indices` (num_steps, B).
     With `cfg.buffer_host_spill` the buffer lies in host memory and the
     batches stream to the device (`_HostBatches`), drawn as the device path
-    draws them. Returns the state and the stacked per-step stats, still on
-    the device."""
-    M = buffer["features"].shape[0]
-    dev = ctx["poses_w2c"].device
+    draws them. With a mesh, `buffer` is the list of row shards
+    (`shard_rows`) and `ctx` the list of the context's replicas
+    (`replicate`); the state lies on the primary, each step draws its global
+    rows there as the one-device path does, gathers them split by position
+    over the mesh (`gather_rows`) and runs `train_step_mesh` on replicas of
+    the parameters made here. Returns the state and the stacked per-step
+    stats, still on the device (the primary)."""
+    if mesh is not None:
+        if cfg.buffer_host_spill:
+            raise ValueError("a host-spilled buffer is not sharded: train it without a mesh")
+        M = buffer[0]["features"].shape[0] * mesh.size
+        dev = mesh.primary
+        replicas = replicate(_trainable(state), mesh)
+    else:
+        M = buffer["features"].shape[0]
+        dev = ctx["poses_w2c"].device
     stream = None
     if cfg.buffer_host_spill:
         stream = _HostBatches(buffer, dev, generator, cfg.batch_size, num_steps, batch_indices)
@@ -353,14 +409,17 @@ def train_steps(state: TrainState, buffer: dict, ctx: dict, hp: dict, cfg: Train
     try:
         for i in range(num_steps):
             if stream is not None:
-                batch = stream.next()
+                state, stats = train_step(state, stream.next(), ctx, hp, cfg, head_cfg)
             else:
                 if batch_indices is not None:
                     idx = torch.as_tensor(batch_indices[i], device=dev).to(torch.int64)
                 else:
                     idx = torch.randint(0, M, (cfg.batch_size,), generator=generator, device=dev)
-                batch = {k: v[idx] for k, v in buffer.items()}
-            state, stats = train_step(state, batch, ctx, hp, cfg, head_cfg)
+                if mesh is not None:
+                    parts = gather_rows(buffer, idx, mesh)
+                    state, stats = train_step_mesh(state, replicas, parts, ctx, hp, cfg, head_cfg, mesh)
+                else:
+                    state, stats = train_step(state, {k: v[idx] for k, v in buffer.items()}, ctx, hp, cfg, head_cfg)
             hist.append(stats)
     finally:
         if stream is not None:
@@ -375,11 +434,18 @@ class MappingTrainer:
     initialisation on the host, buffer fill and batch rows on the device)
     come from generators seeded with `base_seed`; the JAX package's draws
     differ, so runs agree in their metrics, not bit for bit.
+
+    With a mesh (whose primary is the encoder's device) the buffer is filled
+    on the primary, truncated to a multiple of the mesh size and sharded by
+    rows, the context replicated, and `train_steps` runs data-parallel; the
+    state stays on the primary, where `head_params` and `current_poses` are
+    read. A host-spilled buffer is not sharded, as in the JAX package: the
+    trainer then runs on the primary alone.
     """
 
     def __init__(self, scene: SceneData, encoder_params: dict, head_cfg: HeadConfig, cfg: TrainConfig,
                  buffer_cfg: BufferConfig, head_params: dict | None = None, base_seed: int = 2089,
-                 frame_callback=None):
+                 frame_callback=None, mesh: Mesh | None = None):
         # optional `(iteration, poses_w2c (N, 3, 4) numpy) -> None` hook; with
         # it the trainer syncs every `chunk_steps` steps and calls it at each
         # sync that is `iterations_output` past the last call, and at the end
@@ -390,6 +456,9 @@ class MappingTrainer:
         self.head_cfg = head_cfg
         self.encoder_params = encoder_params
         self.device = encoder_params["conv1"]["w"].device
+        self.mesh = None if cfg.buffer_host_spill else mesh
+        if self.mesh is not None and self.mesh.primary != self.device:
+            raise ValueError(f"the mesh's primary {self.mesh.primary} is not the encoder's device {self.device}")
         self.init_generator = torch.Generator().manual_seed(base_seed)
         self.generator = torch.Generator(device=self.device).manual_seed(base_seed)
 
@@ -409,6 +478,7 @@ class MappingTrainer:
             "ppx": torch.tensor(ppx, dtype=torch.float32, device=self.device),
             "ppy": torch.tensor(ppy, dtype=torch.float32, device=self.device),
         }
+        self.mesh_ctx = replicate(self.ctx, self.mesh) if self.mesh is not None else None
 
     def _seed_target_maps(self) -> np.ndarray | None:
         if not self.cfg.use_depth:
@@ -420,12 +490,18 @@ class MappingTrainer:
                                                self.scene.poses_c2w[idx])
         return maps
 
-    def build_buffer(self) -> dict:
-        return fill_training_buffer(
+    def build_buffer(self):
+        """The filled buffer; with a mesh, its row shards (`shard_rows`)."""
+        buffer = fill_training_buffer(
             self.encoder_params, self.scene.images.content(), self.scene.images.sizes, self.buffer_cfg,
             target_maps=self._seed_target_maps(), generator=self.generator, pad_rows_to_bucket=True,
             host_spill=self.cfg.buffer_host_spill,
         )
+        if self.mesh is None:
+            return buffer
+        n = self.mesh.size
+        aligned = (buffer["features"].shape[0] // n) * n
+        return shard_rows({k: v[:aligned] for k, v in buffer.items()}, self.mesh)
 
     def build_state(self) -> TrainState:
         """Fresh optimizer, schedule and refiner state."""
@@ -447,14 +523,15 @@ class MappingTrainer:
         )
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in dict.fromkeys(self.mesh.devices if self.mesh is not None else (self.device,)):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def train(self) -> dict:
         t0 = time.time()
         buffer = self.build_buffer()
         self._sync()
-        n_rows = buffer["features"].shape[0]
+        n_rows = sum(b["features"].shape[0] for b in buffer) if self.mesh is not None else buffer["features"].shape[0]
         fill_time = time.time() - t0
         _logger.info("Filled training buffer: %d rows in %.1fs", n_rows, fill_time)
 
@@ -504,8 +581,8 @@ class MappingTrainer:
         last_logged = last_callback = it
         while it < max_it:
             n = min(group, max_it - it)
-            state, stats = train_steps(state, buffer, self.ctx, hp, cfg, self.head_cfg, n,
-                                       generator=self.generator)
+            state, stats = train_steps(state, buffer, self.mesh_ctx if self.mesh is not None else self.ctx, hp, cfg,
+                                       self.head_cfg, n, generator=self.generator, mesh=self.mesh)
             steps += n
             # one batched fetch per sync: the stop check and the group's stats
             it, max_it = (int(v) for v in torch.stack([state.iteration, state.sched.max_iterations]).tolist())

@@ -83,7 +83,17 @@ Phases:
               buffer against the host-spill buffer (--training_buffer_cpu)
               from one seed: equal fills and bit-equal parameters after
               SPILL_STEPS[0] steps, then SPILL_STEPS[1] steps of each timed
- 13 pretrain  the pretraining slice: the encoder pretraining CLI at its
+ 13 mesh      the data mesh (parallel/mesh.py) on a logical mesh of
+              MESH_SHARDS shards on cuda:0, and on every card when there are
+              several: MappingTrainer's fill sharded (the same rows as one
+              device's), gather_rows at full width bit-equal to indexing,
+              MESH_STEPS[0] steps of the pipeline's mapping recipe against
+              one device from one generator state, MESH_STEPS[1] steps of
+              each timed, the 60 frames registered on the mesh against one
+              device, K1 and K2 launches counted per device (every mesh
+              device launches both), counts zeroed just before each run and
+              read just after; the devices' overlap under torch.profiler
+ 14 pretrain  the pretraining slice: the encoder pretraining CLI at its
               default widths with the v6 recipe's contrastive weight (steps
               cut, PRETRAIN_ARGS; K1 and K2 once an image a step, counts
               zeroed just before and read just after), steps past its
@@ -95,7 +105,7 @@ Phases:
               SHORTFIT_MIN_INLIER10), then the seed-depth pretraining CLI on
               the v4 corpus (cut, DEPTH_PRETRAIN) and its first steps on the
               card against the CPU
- 14 report    one JSON line describing every kernel, then the card's
+ 15 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons), and
@@ -127,7 +137,7 @@ HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
 PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
-          "seeddepth", "bare", "render", "spill", "pretrain", "report")
+          "seeddepth", "bare", "render", "spill", "mesh", "pretrain", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -275,6 +285,55 @@ REGRESSOR_FRAMES = 8
 EXPORT_CONF = 500  # export_cli --network takes the frames registered at the pipeline's confidence bar
 # phase spill: steps held bit for bit, then steps timed with each buffer
 SPILL_STEPS = (200, 500)
+# phase mesh: the data mesh (parallel/mesh.py) as a logical mesh of
+# MESH_SHARDS shards on cuda:0, and over every card when there are several.
+# MappingTrainer with the recipe of phase profile from one generator state,
+# mesh against one device: MESH_STEPS[0] steps held to the bounds of
+# tests/test_torch_mesh.py. `_apply_step` is hooked, so the first step's
+# reduced loss, inlier count and gradients are held: the loss within
+# MESH_LOSS0_RTOL, the inlier count exactly, each gradient leaf within
+# MESH_GRAD_RTOL relative Frobenius (fc3's weight within MESH_GRAD_FC3_RTOL:
+# a bf16 product rounded per part); only the order of the sums differs.
+# Over the steps every loss within MESH_LOSS_RTOL, and the update of the
+# parameters (after - start, not the parameters, which the update moves by
+# only a few per cent) within MESH_UPDATE_RTOL relative Frobenius: the bf16
+# chain and AdamW's early, nearly sign-like steps let any other summation
+# order drift that far (one H100, the logical mesh: 0.124; fc3's weight
+# gradient 3.2e-3, every other leaf within 5.3e-6). Two controls from the
+# same start and draws must fail these checks: no update (the update's
+# error is then 1), and the gradients of the first part alone (the losses
+# and counts still reduced in full: 0.98 on the card, its gradients 0.85
+# apart). Then MESH_STEPS[1] steps of each timed. The
+# gather at full width bit-equal to plain indexing at batch MESH_GATHER_B.
+# The 60 frames registered on the mesh against one device: the same frames
+# valid, and for the frames registered at confidence MESH_REG_CONF or more
+# on either, inliers within max(1, 1%), at least MESH_REG_SHARE of them
+# within MESH_REG_M and MESH_REG_DEG (tests/test_torch_registration.py:
+# 127-130) and every one within MESH_REG_M_MAX and MESH_REG_DEG_MAX. A
+# device registers a batch of 60 / N frames, and cuDNN and the registrar's
+# batched solves round otherwise at another batch size: the mesh registers
+# every frame bit-equal to one device registering chunks of a lane's length
+# with the same draws (checked in the phase), and one device in chunks of
+# 30 moves one of the 45 confident frames by 9.9 mm / 0.104 deg from its
+# chunk of 60, as the 2-shard mesh does (PERF.md section 6). The generator's
+# draws are those of one device whenever the chunk is. Below the bar a
+# frame's few inliers come from near-tied hypotheses: such frames are
+# counted, not held.
+MESH_SHARDS = 2
+MESH_STEPS = (10, 500)
+MESH_PROFILE_STEPS = 20  # steps under torch.profiler for the devices' overlap
+MESH_GATHER_B = 5120
+MESH_LOSS0_RTOL = 1e-6
+MESH_GRAD_RTOL = 1e-5
+MESH_GRAD_FC3_RTOL = 1e-2
+MESH_LOSS_RTOL = 2e-2
+MESH_UPDATE_RTOL = 0.25
+MESH_REG_M = 1e-3
+MESH_REG_DEG = 0.05
+MESH_REG_SHARE = 0.9
+MESH_REG_M_MAX = 0.02
+MESH_REG_DEG_MAX = 0.25
+MESH_REG_CONF = 1000.0
 # phase pretrain: the encoder pretraining CLI at its default widths (8 scenes
 # x 24 views at 192 x 256, batch 8, head_blocks 0, exact supervision) with the
 # v6 recipe's contrastive weight and steps cut from 4,000 to 1,200 (the
@@ -506,6 +565,55 @@ def synced_clock(torch) -> float:
     return time.perf_counter()
 
 
+def compare_entries(np, got, want) -> dict:
+    """Two registrations of the same frames, entry by entry: frames bit-equal,
+    frames valid on one side only, frames more than max(1, 1%) inliers apart
+    (and those of them at confidence MESH_REG_CONF or more on either side),
+    and, over the frames at that confidence, how many are bit-equal, how
+    many lie within MESH_REG_M and MESH_REG_DEG, and the pose gaps."""
+    same = [a.confidence == b.confidence and np.array_equal(a.pose_w2c, b.pose_w2c) for a, b in zip(got, want)]
+    conf = [max(a.confidence, b.confidence) >= MESH_REG_CONF for a, b in zip(got, want)]
+    apart = [abs(a.confidence - b.confidence) > max(1.0, 0.01 * b.confidence) for a, b in zip(got, want)]
+    pairs = [(a, b) for a, b, c in zip(got, want, conf) if c]
+    dt = [float(np.linalg.norm(a.pose_c2w[:3, 3] - b.pose_c2w[:3, 3])) for a, b in pairs]
+    dr = [float(angle_deg(np, a.pose_c2w[:3, :3], b.pose_c2w[:3, :3])) for a, b in pairs]
+    return {"frames": len(got), "bit_equal": sum(same),
+            "validity_differs": sum((a.confidence > 0) != (b.confidence > 0) for a, b in zip(got, want)),
+            "inliers_apart": sum(apart),
+            "inliers_apart_confident": [(Path(a.rgb_file).name, a.confidence, b.confidence)
+                                        for a, b, c, x in zip(got, want, conf, apart) if c and x][:10],
+            "confident_frames": len(pairs), "confident_bit_equal": sum(x for x, c in zip(same, conf) if c),
+            "confident_within": sum(t <= MESH_REG_M and r <= MESH_REG_DEG for t, r in zip(dt, dr)),
+            "max_trans_m": max(dt, default=0.0), "median_trans_m": statistics.median(dt) if dt else 0.0,
+            "max_rot_deg": max(dr, default=0.0), "median_rot_deg": statistics.median(dr) if dr else 0.0,
+            "confidence_median": statistics.median(e.confidence for e in got) if got else None}
+
+
+def device_busy(DeviceType, prof) -> dict:
+    """Each device's kernel-busy ms in a profiled window, the busy ms of
+    their union, and how far the devices overlapped: 1 when the union is no
+    longer than the busiest device (all ran at once), 0 when it is the sum
+    (one after another); null with one device."""
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append((e.time_range.start, e.time_range.end))
+
+    def union(iv):
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    busy = {int(d): union(iv) / 1e3 for d, iv in spans.items()}
+    whole = union([x for iv in spans.values() for x in iv]) / 1e3
+    total, top = sum(busy.values()), max(busy.values(), default=0.0)
+    return {"busy_ms_by_device": busy, "union_ms": whole,
+            "overlap": (total - whole) / (total - top) if len(busy) > 1 and total > top else None}
+
+
 @contextlib.contextmanager
 def k1_shapes(fh, into: list):
     """Appends [B, L] of every K1 launch made inside the block to `into`,
@@ -664,6 +772,16 @@ def pretrain_draws(torch, tep, cfg, n_total: int, steps: int, seed: int) -> list
              "aug": draw_aug_params(gen, cfg.batch_images, tep.AUG_ROTATION_DEG, tep.AUG_SCALE_MIN,
                                     tep.AUG_SCALE_MAX)}
             for _ in range(steps)]
+
+
+def named_leaves(tree, path: str = "") -> list:
+    """(path, leaf) of a tree of dicts, lists and tuples, dicts in sorted key
+    order (the order of training.optim.tree_leaves)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
 
 
 def rel_update(torch, tree_leaves, after, before, want_after) -> float:
@@ -1650,6 +1768,287 @@ def main(argv=None) -> int:
             require(all(rec[n]["fused_head_bwd_launches"] == total and rec[n]["fused_head_fwd_launches"] >= total
                         for n in ("device", "host_spill")), f"a run missed its kernels: {spill_launches}")
 
+    mesh_launches = None  # launch counts of phase mesh, in all and by mesh and run
+    if "mesh" in phases:
+        with phase("mesh", {}) as rec:
+            from collections import Counter
+
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            from dataclasses import replace
+
+            from acezero_tpu_torch.parallel import gather_rows, make_mesh
+            from acezero_tpu_torch.registration import driver as tdrv
+            from acezero_tpu_torch.training import trainer as tt
+            from acezero_tpu_torch.registration.ransac import draw_hypothesis_indices
+
+            rec.update(kind=kind, nvidia_smi=smi, count=torch.cuda.device_count(), shards=MESH_SHARDS,
+                       steps_held=MESH_STEPS[0], steps_timed=MESH_STEPS[1])
+            meshes = {"logical": make_mesh(devices=[DEVICE] * MESH_SHARDS)}
+            if torch.cuda.device_count() > 1:
+                meshes["cards"] = make_mesh()
+            scene = load_scene(str(SCENE / FRAMES), pose_files=str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                               external_focal_length=FOCAL)
+            enc = torch_io.load_encoder(ENCODER, DEVICE)
+            # the mapping recipe of phase profile (the pipeline's rounds)
+            cfg = TrainConfig(schedule=ScheduleConfig(learning_rate_max=0.003), loss=ReproLossConfig(loss_type="tanh"),
+                              pose_refinement="mlp", refine_calibration=True)
+            hp = train_hp(cfg)
+            # the map of phase mapping's fixed-pose run, else the shipped head
+            reg_head_cfg, reg_head = map_head if map_head is not None else torch_io.load_head(HEAD, DEVICE)
+            rec["registration_map"] = "mapping fixed_poses" if map_head is not None else str(HEAD.relative_to(ROOT))
+
+            def sync_all() -> float:
+                for i in range(torch.cuda.device_count()):
+                    torch.cuda.synchronize(i)
+                return time.perf_counter()
+
+            def zero_counts():
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                fh.LAUNCHES_BY_DEVICE.clear()
+                fh.LAUNCHES_BWD_BY_DEVICE.clear()
+
+            def counts() -> dict:
+                return {"fwd": dict(fh.LAUNCHES_BY_DEVICE), "bwd": dict(fh.LAUNCHES_BWD_BY_DEVICE)}
+
+            def steps(trainer, state, buffer, n, mesh):
+                ctx = trainer.mesh_ctx if mesh is not None else trainer.ctx
+                return train_steps(state, buffer, ctx, hp, cfg, HeadConfig(), n, generator=trainer.generator, mesh=mesh)
+
+            def timed_steps(trainer, state, buffer, mesh):
+                t0 = sync_all()
+                state, _ = steps(trainer, state, buffer, MESH_STEPS[1], mesh)
+                dispatched = time.perf_counter() - t0
+                wall = sync_all() - t0
+                return state, {"steps_per_s": MESH_STEPS[1] / wall, "ms_per_step": wall / MESH_STEPS[1] * 1e3,
+                               "host_ms_per_step": dispatched / MESH_STEPS[1] * 1e3}
+
+            def leaves(state):
+                return [t.float().cpu() for t in tree_leaves((state.head_params, state.pose_params, state.focal_g))]
+
+            @contextlib.contextmanager
+            def first_step(into: dict, reduce=None):
+                """Record the first step's reduced (loss, inlier fraction,
+                gradients) into `into`; `reduce` replaces the reduction of
+                the mesh step (a control)."""
+                real_apply, real_reduce = tt._apply_step, tt.reduce_sum
+
+                def apply(state, loss, batch_inliers, grads, hp_, cfg_):
+                    if not into:
+                        into.update(loss=float(loss), inliers=float(batch_inliers),
+                                    grads=[(p, g.float().cpu()) for p, g in named_leaves(grads)])
+                    return real_apply(state, loss, batch_inliers, grads, hp_, cfg_)
+
+                tt._apply_step = apply
+                if reduce is not None:
+                    tt.reduce_sum = lambda trees, dev: reduce(real_reduce, trees, dev)
+                try:
+                    yield into
+                finally:
+                    tt._apply_step, tt.reduce_sum = real_apply, real_reduce
+
+            def grad_rel(got: dict, want: dict) -> dict:
+                """Relative Frobenius difference of each gradient leaf, by path
+                (absolute where the reference is zero)."""
+                out = {}
+                for (p, g), (_, w) in zip(got["grads"], want["grads"]):
+                    n = float(w.norm())
+                    out[p] = float((g - w).norm()) / (n if n > 0 else 1.0)
+                return out
+
+            def grads_within(rel: dict) -> bool:
+                return all(r <= (MESH_GRAD_FC3_RTOL if p.startswith("/0/fc3/w") else MESH_GRAD_RTOL)
+                           for p, r in rel.items())
+
+            def held_steps(trainer, buf, mesh, init_gen, batch_gen, reduce=None):
+                """MESH_STEPS[0] steps on `buf` from the trainer's start state
+                and the batch generator's state: (start, params, losses, first
+                step, state)."""
+                trainer.init_generator.set_state(init_gen)
+                trainer.generator.set_state(batch_gen)
+                st = trainer.build_state()
+                start = leaves(st)
+                with first_step({}, reduce) as first:
+                    st, stats = steps(trainer, st, buf, MESH_STEPS[0], mesh)
+                return start, leaves(st), stats["loss"].cpu().numpy(), first, st
+
+            failures = []
+
+            def check(cond: bool, what: str) -> None:
+                if not cond:
+                    failures.append(what)
+
+            # one device: the reference fill, the held steps, the timed steps
+            one = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(), base_seed=2089)
+            init_gen = one.init_generator.get_state()
+            buffer = one.build_buffer()
+            batch_gen = one.generator.get_state()
+            zero_counts()
+            start, params_one, loss_one, first_one, state = held_steps(one, buffer, None, init_gen, batch_gen)
+            state, rec["one_device"] = timed_steps(one, state, buffer, None)
+            rec["one_device"]["launches"] = counts()
+            del state
+            zero_counts()
+            t0 = sync_all()
+            reg_one = tdrv.register_frames(enc, reg_head, reg_head_cfg, scene, tdrv.RegistrationConfig(), device=DEVICE)
+            reg_seconds = sync_all() - t0
+            rec["one_device"].update(register_seconds=reg_seconds, frames_per_s=len(reg_one) / reg_seconds,
+                                     register_launches=counts())
+            # the one chunk's pass-1 draws of that run (the driver's generator
+            # on the masks in frame order), indexed by scene frame: with them
+            # injected, one device's registration at any chunk length draws
+            # what the run above drew
+            reg_cfg = tdrv.RegistrationConfig()
+            order = tdrv._frame_order(len(scene), reg_cfg)
+            with torch.inference_mode():
+                mask_lr = _canvas_prologue(*tdrv._chunk_images(scene, order, DEVICE), 8)[1]
+            gen = torch.Generator(device=DEVICE).manual_seed(reg_cfg.base_seed + 0x9E37)
+            hyp = torch.empty((len(scene), reg_cfg.ransac.hypotheses, reg_cfg.ransac.max_tries, 4), dtype=torch.long,
+                              device=DEVICE)
+            hyp[torch.as_tensor(order, device=DEVICE)] = draw_hypothesis_indices(
+                mask_lr.reshape(len(scene), -1), reg_cfg.ransac.hypotheses, reg_cfg.ransac.max_tries, gen)
+            rec["one_device"]["injected_draws_vs_generator"] = compare_entries(
+                np, tdrv.register_frames(enc, reg_head, reg_head_cfg, scene, reg_cfg, device=DEVICE, hyp_indices=hyp),
+                reg_one)
+            by_lane = {}  # one device's registration in chunks of a lane's length, by that length
+            mesh_launches = {"fwd": 0, "bwd": 0}
+            for name, mesh in meshes.items():
+                out = rec[name] = {"devices": [str(d) for d in mesh.devices]}
+                per_step = Counter(d.index for d in mesh.devices)  # each position adds one launch a step
+                trainer = MappingTrainer(scene, enc, HeadConfig(), cfg, BufferConfig(), base_seed=2089, mesh=mesh)
+                t0 = sync_all()
+                shards = trainer.build_buffer()
+                out["fill_seconds"] = sync_all() - t0
+                rows = sum(sh["features"].shape[0] for sh in shards)
+                out["buffer_rows"] = rows
+                out["fill_equal_rows"] = all(torch.equal(torch.cat([sh[k].to(DEVICE) for sh in shards]), buffer[k][:rows])
+                                             for k in buffer)
+                idx = torch.randint(0, rows, (MESH_GATHER_B,), device=DEVICE,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(7))
+                parts = gather_rows(shards, idx, mesh)
+                out["gather_bit_equal"] = all(torch.equal(torch.cat([pt[k].to(DEVICE) for pt in parts]), buffer[k][idx])
+                                              for k in buffer)
+                out["gather_part_devices"] = [str(pt["features"].device) for pt in parts]
+                t0 = sync_all()
+                for _ in range(20):
+                    gather_rows(shards, idx, mesh)
+                out["gather_ms"] = (sync_all() - t0) / 20 * 1e3
+                t0 = sync_all()
+                for _ in range(20):
+                    {k: v[idx] for k, v in buffer.items()}
+                out["index_ms"] = (sync_all() - t0) / 20 * 1e3
+                del parts
+
+                zero_counts()
+                start_m, params_m, loss_m, first_m, state_m = held_steps(trainer, shards, mesh, init_gen, batch_gen)
+                rel = np.abs(loss_m / loss_one - 1)
+                out.update(loss_one=loss_one.tolist(), loss_mesh=loss_m.tolist(), loss0_rel=float(rel[0]),
+                           loss_rel_max=float(rel.max()),
+                           start_bit_equal=all(torch.equal(a, b) for a, b in zip(start_m, start)),
+                           first_loss_rel=abs(first_m["loss"] / first_one["loss"] - 1),
+                           first_inliers=[first_one["inliers"], first_m["inliers"]],
+                           first_grad_rel=grad_rel(first_m, first_one),
+                           update_rel_frob=rel_update(torch, tree_leaves, params_m, start, params_one),
+                           param_rel_frob=rel_update(torch, tree_leaves, params_m, [0 * t for t in start], params_one))
+                state_m, timing = timed_steps(trainer, state_m, shards, mesh)
+                out.update(timing, launches=counts(),
+                           over_one_device_steps_per_s=timing["steps_per_s"] / rec["one_device"]["steps_per_s"])
+                total = sum(MESH_STEPS)
+                want = {d: c * total for d, c in per_step.items()}
+                out["launches_expected"] = want
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state_m, _ = steps(trainer, state_m, shards, MESH_PROFILE_STEPS, mesh)
+                    sync_all()
+                out["mapping_overlap"] = device_busy(DeviceType, prof)
+                # the controls, from the same start and draws: no update, and
+                # the first part's gradients alone
+                ctl_params = held_steps(trainer, shards, mesh, init_gen, batch_gen,
+                                        reduce=lambda real, trees, dev: (*real(trees, dev)[:2], real(trees[:1], dev)[2]))
+                out["controls"] = {
+                    "no_update": {"update_rel_frob": rel_update(torch, tree_leaves, start, start, params_one)},
+                    "first_part_grads": {"update_rel_frob": rel_update(torch, tree_leaves, ctl_params[1], start,
+                                                                       params_one),
+                                         "first_grad_rel_max": max(grad_rel(ctl_params[3], first_one).values()),
+                                         "grads_within": grads_within(grad_rel(ctl_params[3], first_one))}}
+                del ctl_params
+                mesh_launches["fwd"] += sum(out["launches"]["fwd"].values())
+                mesh_launches["bwd"] += sum(out["launches"]["bwd"].values())
+                del trainer, shards, state_m
+
+                calls = []
+                real_coords = tdrv.coords_chunk
+
+                def counted_coords(*a, **k):
+                    calls.append(a[3].device.index)
+                    return real_coords(*a, **k)
+
+                tdrv.coords_chunk = counted_coords
+                try:
+                    zero_counts()
+                    t0 = sync_all()
+                    reg_m = tdrv.register_frames(enc, reg_head, reg_head_cfg, scene, tdrv.RegistrationConfig(), mesh=mesh)
+                    reg_seconds = sync_all() - t0
+                    out["register_launches"] = counts()
+                    reg_calls = dict(Counter(calls))
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        tdrv.register_frames(enc, reg_head, reg_head_cfg, scene, tdrv.RegistrationConfig(), mesh=mesh)
+                        sync_all()
+                    out["registration_overlap"] = device_busy(DeviceType, prof)
+                finally:
+                    tdrv.coords_chunk = real_coords
+                mesh_launches["fwd"] += sum(out["register_launches"]["fwd"].values())
+                out.update(register_seconds=reg_seconds, frames_per_s=len(reg_m) / reg_seconds,
+                           coords_calls_by_device=reg_calls, vs_one_device=compare_entries(np, reg_m, reg_one))
+                # the same draws and the same batch on every device as one
+                # device registering chunks of a lane's length: the same bits
+                lane = N_FRAMES // mesh.size
+                if N_FRAMES % mesh.size == 0 and tdrv._frame_chunk(reg_cfg, mesh) >= N_FRAMES:
+                    if lane not in by_lane:
+                        by_lane[lane] = tdrv.register_frames(enc, reg_head, reg_head_cfg, scene,
+                                                             replace(reg_cfg, frame_chunk=lane), device=DEVICE,
+                                                             hyp_indices=hyp)
+                    same = tdrv.register_frames(enc, reg_head, reg_head_cfg, scene, reg_cfg, mesh=mesh, hyp_indices=hyp)
+                    sb = out["same_batches"] = compare_entries(np, same, by_lane[lane])
+                    # one device in chunks of a lane's length against one chunk
+                    out["one_device_lane_chunks"] = compare_entries(np, by_lane[lane], reg_one)
+                    check(sb["confident_bit_equal"] == sb["confident_frames"],
+                          f"{name}: {sb['confident_bit_equal']} of {sb['confident_frames']} confident frames bit-equal "
+                          f"to one device registering chunks of {lane} with the same draws")
+                vs = out["vs_one_device"]
+                check(out["fill_equal_rows"], f"{name}: the sharded fill differs from one device's")
+                check(out["gather_bit_equal"], f"{name}: gather_rows differs from plain indexing")
+                check(out["start_bit_equal"], f"{name}: the held steps start from other parameters than one device's")
+                check(out["loss0_rel"] <= MESH_LOSS0_RTOL and out["first_loss_rel"] <= MESH_LOSS0_RTOL,
+                      f"{name}: first loss {out['loss0_rel']} > {MESH_LOSS0_RTOL}")
+                check(first_m["inliers"] == first_one["inliers"],
+                      f"{name}: first step's inlier fraction {out['first_inliers']} differs")
+                check(grads_within(out["first_grad_rel"]), f"{name}: first step's gradients {out['first_grad_rel']} "
+                      f"beyond {MESH_GRAD_RTOL} (fc3's weight {MESH_GRAD_FC3_RTOL})")
+                check(out["loss_rel_max"] <= MESH_LOSS_RTOL, f"{name}: losses {out['loss_rel_max']} > {MESH_LOSS_RTOL}")
+                check(out["update_rel_frob"] <= MESH_UPDATE_RTOL,
+                      f"{name}: parameter update {out['update_rel_frob']} > {MESH_UPDATE_RTOL}")
+                ctl = out["controls"]
+                check(ctl["no_update"]["update_rel_frob"] > MESH_UPDATE_RTOL,
+                      f"{name}: the no-update control passes the update check: {ctl}")
+                check(not ctl["first_part_grads"]["grads_within"],
+                      f"{name}: the first-part-gradients control passes the gradient check: {ctl}")
+                check(out["launches"]["fwd"] == want and out["launches"]["bwd"] == want,
+                      f"{name}: launches {out['launches']} != {want} (one K1 and one K2 a part a step)")
+                check(out["register_launches"]["fwd"] == reg_calls and set(reg_calls) == {d.index for d in mesh.devices}
+                      and sum(reg_calls.values()) >= mesh.size,
+                      f"{name}: registration launches {out['register_launches']} against chunks {reg_calls}")
+                check(len(reg_m) == N_FRAMES and vs["validity_differs"] == 0 and not vs["inliers_apart_confident"],
+                      f"{name}: registration validity or inliers differ: {vs}")
+                check(vs["confident_within"] >= MESH_REG_SHARE * vs["confident_frames"]
+                      and vs["max_trans_m"] <= MESH_REG_M_MAX and vs["max_rot_deg"] <= MESH_REG_DEG_MAX,
+                      f"{name}: registered poses from one device's: {vs}")
+            mesh_launches["by_mesh"] = {name: {"mapping": rec[name]["launches"], "registration": rec[name]["register_launches"]}
+                                        for name in meshes}
+            del buffer, one
+            torch.cuda.empty_cache()
+            require(not failures, "; ".join(failures))
+
     pretrain_launches = None  # launch counts of phase pretrain, by run
     if "pretrain" in phases:
         with phase("pretrain", {}) as rec:
@@ -1802,6 +2201,7 @@ def main(argv=None) -> int:
             pipe_bwd = pipe_launches["bwd"] if pipe_launches else 0
             bare_fwd, bare_bwd = (bare_launches["fwd"], bare_launches["bwd"]) if bare_launches else (0, 0)
             spill_fwd, spill_bwd = (spill_launches["fwd"], spill_launches["bwd"]) if spill_launches else (0, 0)
+            mesh_fwd, mesh_bwd = (mesh_launches["fwd"], mesh_launches["bwd"]) if mesh_launches else (0, 0)
             render_fwd = render_launches["export_cli"] + render_launches["regressor"] if render_launches else 0
             pre = pretrain_launches or {}
             pre_fwd, pre_bwd = (pre["encoder"]["fwd"], pre["encoder"]["bwd"]) if pre else (0, 0)
@@ -1816,7 +2216,7 @@ def main(argv=None) -> int:
                 "replaces": "acezero_tpu/ops/fused_head.py:108",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_forward_kernel",
                 "launches": ((launches or 0) + fwd + (lc_launches or 0) + pipe_fwd + bare_fwd + render_fwd + spill_fwd
-                             + pre_fwd + fit_fwd),
+                             + mesh_fwd + pre_fwd + fit_fwd),
                 "launches_by_path": {"register": launches, "mapping": fwd if map_launches else None,
                                      "loopclose": lc_launches, "pipeline": pipe_fwd if pipe_launches else None,
                                      "pipeline_loop_closure": pipe_lc, "bare": bare_fwd if bare_launches else None,
@@ -1824,8 +2224,11 @@ def main(argv=None) -> int:
                                                            else None),
                                      "render": render_fwd if render_launches else None,
                                      "spill": spill_fwd if spill_launches else None,
+                                     "mesh": mesh_fwd if mesh_launches else None,
                                      "pretrain": pre_fwd if pre else None,
                                      "pretrain_shortfit": fit_fwd if pre else None},
+                # phase mesh's launches by mesh, run and device index
+                "mesh_launches": mesh_launches["by_mesh"] if mesh_launches else None,
                 # [B, L] of each loop-closure launch, recorded where it was made
                 "loop_closure_shapes": {"loopclose": lc_shapes,
                                         "pipeline": pipe_launches["loop_closure_shapes"] if pipe_launches else None},
@@ -1853,13 +2256,14 @@ def main(argv=None) -> int:
                 "source": "acezero_tpu_torch/ops/csrc/fused_head_bwd.cu",
                 "replaces": "acezero_tpu/ops/fused_head.py:112",
                 "replaces_function": "acezero_tpu/ops/fused_head.py::_backward_kernel",
-                "launches": bwd + pipe_bwd + bare_bwd + spill_bwd + pre_bwd + fit_bwd,
+                "launches": bwd + pipe_bwd + bare_bwd + spill_bwd + mesh_bwd + pre_bwd + fit_bwd,
                 "launches_by_path": {"register": 0, "mapping": bwd if map_launches else None,
                                      "loopclose": 0 if lc_launches is not None else None,
                                      "pipeline": pipe_bwd if pipe_launches else None,
                                      "bare": bare_bwd if bare_launches else None,
                                      "render": 0 if render_launches else None,
                                      "spill": spill_bwd if spill_launches else None,
+                                     "mesh": mesh_bwd if mesh_launches else None,
                                      "pretrain": pre_bwd if pre else None,
                                      "pretrain_shortfit": fit_bwd if pre else None},
                 **pick(k2_map, *fields, "kernel_ms_stream", "tflops", "tflops_stream", "smem_bytes", "sm_fill"),

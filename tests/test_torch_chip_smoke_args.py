@@ -31,6 +31,8 @@ def test_default_runs_every_phase():
     ("bare", ["device", "bare"]),
     ("pretrain", ["device", "pretrain"]),
     ("report,pretrain,spill,build", ["device", "build", "spill", "pretrain", "report"]),
+    ("mesh,build", ["device", "build", "mesh"]),
+    ("pretrain,mesh,spill", ["device", "spill", "mesh", "pretrain"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -136,14 +138,94 @@ def test_new_phases_after_pipeline_in_order():
     of 60 under the JAX package's rate, and seeddepth holds the JAX
     package's statistics within 0.01."""
     phases = list(chip_smoke.PHASES)
-    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "spill", "pretrain",
-                                                 "report"]
+    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "spill", "mesh",
+                                                 "pretrain", "report"]
     n = chip_smoke.N_FRAMES
     assert round(chip_smoke.BARE_SHARE * n) == round(chip_smoke.BARE_JAX_RATE * n) - 3 == 16
     assert chip_smoke.BARE_SHARE == 16 / n  # a frame count: 16 registered frames reach it exactly
     assert chip_smoke.SEEDDEPTH_TOL == 0.01 and set(chip_smoke.SEEDDEPTH_JAX) == {"raw_rel", "shape_rel", "scale_cv"}
     assert chip_smoke.SEEDDEPTH_STRIDE == 6 and chip_smoke.DEPTH_HEAD.name == "tpu_depth_v4.pt"
     assert chip_smoke.SPILL_STEPS == (200, 500)
+
+
+def test_mesh_phase_constants():
+    """Phase mesh: a logical mesh of two shards on the card (and every card
+    when there are several), the held steps at the bounds of
+    tests/test_torch_mesh.py, the timed steps as phase spill's, the gather
+    at the mapping batch, and the registration bounds of
+    tests/test_torch_registration.py:127-130 for nine in ten confident
+    frames, with a looser ceiling for every one."""
+    assert chip_smoke.MESH_SHARDS == 2 and chip_smoke.MESH_STEPS == (10, 500)
+    assert chip_smoke.MESH_STEPS[1] == chip_smoke.SPILL_STEPS[1] and chip_smoke.MESH_GATHER_B == 5120
+    assert (chip_smoke.MESH_LOSS0_RTOL, chip_smoke.MESH_GRAD_RTOL, chip_smoke.MESH_GRAD_FC3_RTOL) == (1e-6, 1e-5, 1e-2)
+    # the update check must fail the no-update control, whose error is 1
+    assert chip_smoke.MESH_LOSS_RTOL == 2e-2 and 0 < chip_smoke.MESH_UPDATE_RTOL < 1
+    assert (chip_smoke.MESH_REG_M, chip_smoke.MESH_REG_DEG, chip_smoke.MESH_REG_CONF) == (1e-3, 0.05, 1000.0)
+    assert chip_smoke.MESH_REG_SHARE == 0.9
+    assert chip_smoke.MESH_REG_M_MAX > chip_smoke.MESH_REG_M and chip_smoke.MESH_REG_DEG_MAX > chip_smoke.MESH_REG_DEG
+
+
+def test_named_leaves_follow_tree_leaves():
+    """Phase mesh names each gradient leaf by its path, in the order of
+    training.optim.tree_leaves (dicts by sorted key), so that fc3's weight
+    gets its own bound."""
+    import torch
+
+    from acezero_tpu_torch.training.optim import tree_leaves
+
+    tree = ({"fc3": {"w": torch.zeros(2), "b": torch.ones(1)}, "a": [torch.ones(3)]}, {}, torch.zeros(()))
+    named = chip_smoke.named_leaves(tree)
+    assert [p for p, _ in named] == ["/0/a/0", "/0/fc3/b", "/0/fc3/w", "/2"]
+    assert all(x is y for (_, x), y in zip(named, tree_leaves(tree)))
+
+
+def test_device_busy_measures_overlap():
+    """Phase mesh's overlap from kernel spans: 1 when the devices ran at
+    once, 0 when one after another, null with one device."""
+    from types import SimpleNamespace
+
+    def prof(spans):
+        return SimpleNamespace(events=lambda: [
+            SimpleNamespace(device_type="cuda", device_index=d, time_range=SimpleNamespace(start=a, end=b))
+            for d, a, b in spans])
+
+    types = SimpleNamespace(CUDA="cuda")
+    at_once = chip_smoke.device_busy(types, prof([(0, 0, 1000), (1, 0, 1000), (0, 200, 500)]))
+    assert at_once["busy_ms_by_device"] == {0: 1.0, 1: 1.0} and at_once["union_ms"] == 1.0 and at_once["overlap"] == 1.0
+    serial = chip_smoke.device_busy(types, prof([(0, 0, 1000), (1, 1000, 2000)]))
+    assert serial["union_ms"] == 2.0 and serial["overlap"] == 0.0
+    assert chip_smoke.device_busy(types, prof([(0, 0, 1000)]))["overlap"] is None
+
+
+def test_compare_entries_counts_what_phase_mesh_holds():
+    """Phase mesh's registration comparison: bit-equal frames, validity,
+    inlier gaps (held only at the confidence bar) and pose gaps of the
+    confident frames, with a rotation measure that reads about 0 for one matrix
+    against itself (to 1e-9 deg)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from acezero_tpu_torch.io.pose_files import PoseFileEntry
+
+    rng = np.random.default_rng(0)
+
+    def entry(i, conf, R, t):
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = R, t
+        return PoseFileEntry(f"f{i}.png", np.linalg.inv(w2c), 500.0, conf)
+
+    Rs = Rotation.random(4, random_state=1).as_matrix().astype(np.float32)
+    ts = rng.normal(size=(4, 3))
+    want = [entry(i, c, Rs[i], ts[i]) for i, c in enumerate((2000.0, 3000.0, 8.0, 0.0))]
+    moved = Rotation.from_rotvec([0.0, 0.0, np.radians(0.2)]).as_matrix() @ Rs[1]
+    got = [want[0], entry(1, 3010.0, moved, ts[1] + [0.005, 0, 0]), entry(2, 10.0, Rs[2], ts[2]), want[3]]
+    d = chip_smoke.compare_entries(np, got, want)
+    assert d["bit_equal"] == 2 and d["validity_differs"] == 0 and d["inliers_apart"] == 1
+    assert d["inliers_apart_confident"] == [] and d["confident_frames"] == 2 and d["confident_bit_equal"] == 1
+    assert d["confident_within"] == 1 and abs(d["max_trans_m"] - 0.005) < 1e-6
+    assert abs(d["max_rot_deg"] - 0.2) < 1e-3
+    same = chip_smoke.compare_entries(np, want, want)
+    assert same["max_rot_deg"] < 1e-9 and same["confident_within"] == 2
 
 
 def test_render_phase_constants():

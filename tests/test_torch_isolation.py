@@ -40,6 +40,7 @@ def test_no_forbidden_imports(path):
 def test_files_found():
     assert len(FILES) > 20
     assert (ROOT / "acezero_tpu_torch" / "ops" / "csrc" / "fused_head_fwd.cu").exists()
+    assert {ROOT / "acezero_tpu_torch" / "parallel" / n for n in ("__init__.py", "mesh.py")} <= set(FILES)
 
 
 _BLOCKER = """

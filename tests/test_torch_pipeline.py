@@ -45,6 +45,8 @@ from acezero_tpu_torch.reconstruct import AceZeroConfig, AceZeroPipeline
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from synthetic import render_room_scene  # noqa: E402
+# autouse: torch on one thread
+from test_torch_trainer import one_torch_thread  # noqa: E402,F401
 
 N = 10
 # tests/test_pipeline_e2e.py:32, the mini reconstruction loop

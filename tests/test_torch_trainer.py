@@ -51,6 +51,18 @@ def interpret_mode(monkeypatch):
     monkeypatch.setattr(jfh, "INTERPRET", True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These tests run thousands of small CPU ops; beside other test
+    processes, torch's default thread pool oversubscribes the cores and
+    they slow down many times over. tests/test_torch_pipeline.py and
+    tests/test_torch_mesh.py import this fixture too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ctx_np():
     poses = np.stack([np.loadtxt(SCENE / f"frame_{i:04d}_pose.txt") for i in range(0, 40, 10)])
     w2c = np.linalg.inv(poses).astype(np.float32)
