@@ -1,14 +1,22 @@
 """Host-side image decode onto static grayscale canvases.
 
-Counterpart of acezero_tpu/data/images.py, without PIL: PNG files decode
-with `zlib` and numpy (gray, gray+alpha, RGB and RGBA at bit depth 8 or
-16, not interlaced, all five row filters; anything else raises). Each
-image is turned to ITU-R 601 luma, resized so its short side matches
+Counterpart of acezero_tpu/data/images.py, without PIL. `read_image`
+decodes a PNG or a JPEG by its signature. PNG files decode with `zlib` and
+numpy: gray at bit depths 1, 2, 4, 8 and 16, palette, gray+alpha, RGB and
+RGBA, all five row filters, Adam7 interlacing; a palette image becomes RGB
+and 1-, 2- and 4-bit gray is scaled to 8 bits, as PIL gives them to the JAX
+package. JPEG files decode in io/csrc/jpeg.cpp (io/jpeg.py) to PIL's own
+pixels. Anything else raises ValueError naming the file.
+
+Each image is turned to ITU-R 601 luma, resized so its short side matches
 `short_size`, and centred on a canvas shared by the whole set, rounded up
 to a multiple of 8 — the same arithmetic as native/canvas.cpp: an area
 average when shrinking, bilinear when enlarging, float32 luma, +0.5 and
 truncation to uint8. A 16-bit image first becomes what PIL makes of it
-(`pil_uint8`).
+(`pil_uint8`). `decode_to_canvas` reads the sizes from the files' headers,
+fixes the canvas, then decodes, resizes and places each image in one
+worker task, so at most `num_workers` decoded images are held at once
+(the JAX package decodes all of them before placing any).
 
 The colour paths that the JAX package runs through PIL are reproduced
 exactly: `read_rgb` (`convert("RGB")`), `pil_luma_u8` (`convert("L")`,
@@ -39,6 +47,9 @@ from pathlib import Path
 
 import numpy as np
 
+from acezero_tpu_torch.io.jpeg import read_jpeg
+from acezero_tpu_torch.io.png import image_size
+
 # Grayscale normalization statistics (reference dataset.py:150-153).
 GRAY_MEAN = 0.4
 GRAY_STD = 0.25
@@ -46,7 +57,12 @@ GRAY_STD = 0.25
 _logger = logging.getLogger(__name__)
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_JPEG_SIGNATURE = b"\xff\xd8"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # bit depths PNG allows
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17}  # PIL's modes 1 (to 0/255 by convert("L")), L;2 and L;4
+# Adam7 passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -107,16 +123,37 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int, path) -> np.ndarray:
     return s[rows + 1, cols].astype(np.uint8)
 
 
+def _samples(raw: bytes, h: int, w: int, depth: int, channels: int, path) -> np.ndarray:
+    """Unfilter one (sub)image of h rows of w pixels: (h, w, channels)
+    samples, uint8 up to bit depth 8 (packed samples unpacked, not scaled),
+    uint16 at 16 (big-endian, filtered byte by byte)."""
+    bits = depth * channels
+    if bits < 8:  # packed rows: the filters work on whole bytes
+        row_bytes = (w * bits + 7) // 8
+        packed = _unfilter(raw, h, row_bytes, 1, path).reshape(h, row_bytes)
+        per_byte = 8 // depth
+        shifts = (8 - depth * (1 + np.arange(per_byte))).astype(np.uint8)
+        vals = (packed[:, :, None] >> shifts) & ((1 << depth) - 1)
+        return vals.reshape(h, row_bytes * per_byte)[:, :w, None].astype(np.uint8)
+    nbytes = depth // 8
+    img = _unfilter(raw, h, w, channels * nbytes, path)
+    if nbytes == 2:
+        pairs = img.reshape(h, w, channels, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    return img
+
+
 def read_png(path) -> np.ndarray:
     """Decode a PNG: (h, w) for gray, (h, w, 2|3|4) for gray+alpha, RGB and
-    RGBA; uint8 at bit depth 8, uint16 at 16 (big-endian samples, filtered
-    byte by byte with 2 bytes a sample)."""
+    RGBA; uint8 at bit depth 8 or less, uint16 at 16. A palette image comes
+    out as (h, w, 3) RGB (its transparency dropped), and 1-, 2- and 4-bit
+    gray scaled to 8 bits (0/255, x85, x17), as PIL's modes give them."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     pos = len(_PNG_SIGNATURE)
-    header = None
+    header = palette = None
     idat = []
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
@@ -125,6 +162,8 @@ def read_png(path) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -132,19 +171,49 @@ def read_png(path) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: PNG without IHDR or IDAT")
     w, h, depth, ctype, _compression, _filter, interlace = header
-    if depth not in (8, 16) or ctype not in _CHANNELS or interlace != 0:
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype] or interlace not in (0, 1):
         raise ValueError(
-            f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}); supported: 8- and 16-bit gray, gray+alpha, RGB, RGBA, "
-            "not interlaced"
+            f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, interlace {interlace}); "
+            "supported: the bit depths PNG allows for each colour type, not interlaced or Adam7"
         )
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
     channels = _CHANNELS[ctype]
-    nbytes = depth // 8
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels * nbytes, path)
-    if nbytes == 2:
-        pairs = img.reshape(h, w, channels, 2).astype(np.uint16)
-        img = (pairs[..., 0] << 8) | pairs[..., 1]
+    raw = zlib.decompress(b"".join(idat))
+    if interlace == 0:
+        img = _samples(raw, h, w, depth, channels, path)
+    else:
+        img = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            ph, pw = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+            if ph <= 0 or pw <= 0:
+                continue
+            n = ph * (1 + (pw * depth * channels + 7) // 8)
+            img[y0::dy, x0::dx] = _samples(raw[off : off + n], ph, pw, depth, channels, path)
+            off += n
+        if off != len(raw):
+            raise ValueError(f"{path}: PNG image data has {len(raw)} bytes, expected {off}")
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)  # entries past the palette's end are black
+        entries = np.frombuffer(palette[: len(palette) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
+        lut[: len(entries)] = entries
+        return lut[img[..., 0]]
+    if ctype == 0 and depth < 8:
+        return (img[..., 0] * _GRAY_SCALE[depth]).astype(np.uint8)
     return img[..., 0] if channels == 1 else img
+
+
+def read_image(path) -> np.ndarray:
+    """Decode a PNG (`read_png`) or a JPEG (io/jpeg.py::read_jpeg), told
+    apart by the file's signature; anything else raises ValueError."""
+    with open(path, "rb") as f:
+        head = f.read(len(_PNG_SIGNATURE))
+    if head.startswith(_PNG_SIGNATURE):
+        return read_png(path)
+    if head.startswith(_JPEG_SIGNATURE):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def pil_uint8(img: np.ndarray) -> np.ndarray:
@@ -160,8 +229,9 @@ def pil_uint8(img: np.ndarray) -> np.ndarray:
 
 def read_rgb(path) -> np.ndarray:
     """(h, w, 3) uint8, as PIL's `Image.open(path).convert("RGB")`: gray is
-    replicated, gray+alpha and RGBA drop alpha (no compositing)."""
-    img = pil_uint8(read_png(path))
+    replicated, gray+alpha and RGBA drop alpha (no compositing); a PNG or a
+    JPEG."""
+    img = pil_uint8(read_image(path))
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     if img.shape[-1] == 2:
@@ -402,8 +472,9 @@ def decode_to_canvas(
     num_workers: int = 16,
     cache_dir=None,
 ) -> DecodedImages:
-    """Decode all images and centre them on one shared canvas (by default the
-    largest resized extent, rounded up to a multiple of 8). With `cache_dir`
+    """Decode all images (PNG or JPEG) and centre them on one shared canvas
+    (by default the largest resized extent, rounded up to a multiple of 8);
+    at most `num_workers` decoded images are held at once. With `cache_dir`
     the canvases are read from, or written to, the decode cache (module
     note); a cache that cannot be trusted or used is skipped."""
     d = key = None
@@ -419,9 +490,7 @@ def decode_to_canvas(
         if cached is not None:
             return cached
 
-    with _futures.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
-        raws = list(ex.map(read_png, paths))
-    orig_sizes = np.array([r.shape[:2] for r in raws], np.int32).reshape(-1, 2)
+    orig_sizes = np.array([image_size(p)[::-1] for p in paths], np.int32).reshape(-1, 2)  # (h, w) from headers
     scales = short_size / orig_sizes.min(axis=1).astype(np.float32)
     sizes = np.round(orig_sizes * scales[:, None]).astype(np.int32)
     if canvas_hw is None:
@@ -434,10 +503,13 @@ def decode_to_canvas(
 
     canvases = np.zeros((len(paths), hc, wc), np.uint8)
 
-    def place(i):
+    def place(i):  # decode, resize and place one image; its pixels are dropped on return
+        raw = read_image(paths[i])
+        if raw.shape[:2] != tuple(orig_sizes[i]):
+            raise ValueError(f"{paths[i]}: decoded {raw.shape[:2]}, its header says {tuple(orig_sizes[i])}")
         h, w = (int(s) for s in sizes[i])
         y0, x0 = (hc - h) // 2, (wc - w) // 2
-        canvases[i, y0 : y0 + h, x0 : x0 + w] = gray_resize(raws[i], h, w)
+        canvases[i, y0 : y0 + h, x0 : x0 + w] = gray_resize(raw, h, w)
 
     with _futures.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
         list(ex.map(place, range(len(paths))))

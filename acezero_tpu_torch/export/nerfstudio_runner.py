@@ -8,10 +8,11 @@ to transforms.json, cap the test set and downscale the images to at most
 external dependency that this module never installs; without its CLIs it
 raises RuntimeError naming the missing one.
 
-The downscale is PIL's bilinear resize of 8-bit gray or RGB PNGs
-(data/images.py::pil_resize_bilinear) written by io/png.py. There is no
-JPEG codec here: a JPEG (or any other source) that needs downscaling
-raises ValueError, where the JAX package resizes it with PIL.
+The downscale is PIL's bilinear resize (data/images.py::pil_resize_bilinear)
+of a PNG or JPEG source, written under the source's name as the JAX
+runner's `img.save(dst)` writes it: a PNG by io/png.py (PIL's pixels, other
+bytes), a JPEG by io/jpeg.py (PIL's default quality 75 and 4:2:0, PIL's
+bytes). A source that is not 8-bit gray or RGB raises ValueError.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from pathlib import Path
 
 import numpy as np
 
-from acezero_tpu_torch.data.images import pil_resize_bilinear, read_png
+from acezero_tpu_torch.data.images import pil_resize_bilinear, read_image
 from acezero_tpu_torch.export.nerf import export_transforms_json
+from acezero_tpu_torch.io.jpeg import write_jpeg
 from acezero_tpu_torch.io.png import image_size, write_png
 
 _logger = logging.getLogger(__name__)
@@ -55,16 +57,12 @@ def _require_cli(name: str) -> str:
     return path
 
 
-def _resized_png(src: Path, new_w: int, new_h: int) -> np.ndarray:
+def _resized(src: Path, new_w: int, new_h: int) -> np.ndarray:
     """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)` of an 8-bit
-    gray or RGB PNG."""
-    try:
-        img = read_png(src)
-    except ValueError as exc:
-        raise ValueError(f"{src} needs downscaling, and only PNGs can be decoded here (there is no JPEG codec): "
-                         f"{exc}; downscale the images beforehand or pass downscale=False") from exc
+    gray or RGB PNG or JPEG."""
+    img = read_image(src)
     if img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] == 3):
-        raise ValueError(f"{src}: only 8-bit gray or RGB PNGs can be downscaled here, got {img.dtype} {img.shape}")
+        raise ValueError(f"{src}: only 8-bit gray or RGB images can be downscaled here, got {img.dtype} {img.shape}")
     return pil_resize_bilinear(img, new_h, new_w)
 
 
@@ -81,7 +79,11 @@ def _downscale_images(transforms_path: Path, workdir: Path) -> None:
             continue
         new_size = (round(width * scale), round(height * scale))
         dst = img_dir / src.name
-        write_png(dst, _resized_png(src, *new_size))
+        small = _resized(src, *new_size)
+        if src.suffix.lower() in (".jpg", ".jpeg", ".jpe", ".jfif"):  # PIL picks the format by the name
+            write_jpeg(dst, small)
+        else:
+            write_png(dst, small)
         for key, factor in (("fl_x", scale), ("fl_y", scale), ("cx", scale), ("cy", scale)):
             frame[key] = frame[key] * factor
         frame["w"], frame["h"] = new_size

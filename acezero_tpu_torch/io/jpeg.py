@@ -1,0 +1,101 @@
+"""JPEG files without an image library: io/csrc/jpeg.cpp through ctypes.
+
+`read_jpeg(path)` gives the pixels of `np.asarray(PIL.Image.open(path))`
+for a Huffman-coded 8-bit JPEG (baseline, extended sequential or
+progressive; gray or three components; restart intervals; any size): (h, w)
+uint8 for one component, (h, w, 3) RGB for three. It reproduces
+libjpeg-turbo's default decompression, which PIL runs: the islow IDCT,
+fancy chroma upsampling and the fixed-point YCbCr->RGB tables. Arithmetic
+coding, lossless and hierarchical files, 12-bit samples, CMYK/YCCK, other
+sampling factors and truncated or corrupt data raise ValueError naming the
+file.
+
+`write_jpeg(path, img, quality=75, subsampling="4:2:0")` writes baseline
+JPEG byte for byte as PIL's `Image.fromarray(img).save(path, quality=...)`
+does.
+
+The library is built from source on first use (ops/build.py::load_host).
+ctypes releases the GIL for the length of each call, so a thread pool
+decodes files in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import numpy as np
+
+from acezero_tpu_torch.ops import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "jpeg.cpp"
+SUBSAMPLING = {"4:4:4": 0, "4:2:0": 1}
+_ERR_BYTES = 512
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load_host(SOURCE)
+    p, n, err, i = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int
+    lib.acz_jpeg_header.argtypes = [p, n, p, err, i]
+    lib.acz_jpeg_header.restype = i
+    lib.acz_jpeg_decode.argtypes = [p, n, p, n, err, i]
+    lib.acz_jpeg_decode.restype = i
+    lib.acz_jpeg_encode.argtypes = [p, i, i, i, i, i, p, n, err, i]
+    lib.acz_jpeg_encode.restype = ctypes.c_int64
+    return lib
+
+
+def jpeg_shape(data: np.ndarray, path) -> tuple[int, ...]:
+    """(h, w) or (h, w, 3) of the JPEG held in `data` (uint8), from its
+    start-of-frame marker."""
+    hwc = np.zeros(3, np.int32)
+    err = ctypes.create_string_buffer(_ERR_BYTES)
+    if _lib().acz_jpeg_header(data.ctypes.data, data.size, hwc.ctypes.data, err, _ERR_BYTES):
+        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
+    h, w, c = (int(v) for v in hwc)
+    return (h, w) if c == 1 else (h, w, c)
+
+
+def read_jpeg(path) -> np.ndarray:
+    """Decode a JPEG file: (h, w) uint8 gray or (h, w, 3) uint8 RGB."""
+    data = np.fromfile(path, np.uint8)
+    out = np.empty(jpeg_shape(data, path), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_BYTES)
+    if _lib().acz_jpeg_decode(data.ctypes.data, data.size, out.ctypes.data, out.nbytes, err, _ERR_BYTES):
+        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
+    return out
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> bytes:
+    """Baseline JPEG bytes of an 8-bit gray (h, w) or RGB (h, w, 3) image;
+    `subsampling` applies to RGB and is "4:2:0" or "4:4:4"."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_jpeg takes uint8 (h, w) or (h, w, 3), got {img.dtype} {img.shape}")
+    if subsampling not in SUBSAMPLING:
+        raise ValueError(f"subsampling must be one of {sorted(SUBSAMPLING)}, got {subsampling!r}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    lib = _lib()
+    err = ctypes.create_string_buffer(_ERR_BYTES)
+    cap = 2 * img.size + 4096
+    for _ in range(2):
+        out = np.empty(cap, np.uint8)
+        n = lib.acz_jpeg_encode(img.ctypes.data, h, w, c, int(quality), SUBSAMPLING[subsampling],
+                                out.ctypes.data, cap, err, _ERR_BYTES)
+        if n < 0:
+            raise ValueError(err.value.decode(errors="replace"))
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n
+    raise RuntimeError("JPEG encoder reported two different lengths")
+
+
+def write_jpeg(path, img: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> None:
+    """Write `img` as PIL's `Image.fromarray(img).save(path, quality=quality,
+    subsampling=subsampling)` would; a gray image as PIL's save without the
+    subsampling option, which no caller passes for one (PIL then writes 2 x 2
+    sampling factors on the single component)."""
+    Path(path).write_bytes(encode_jpeg(img, quality, subsampling))

@@ -1,4 +1,4 @@
-"""PNG writing and image-size probing without an image library.
+"""PNG writing and PNG/JPEG size probing without an image library.
 
 `write_png` writes 8-bit gray (h, w) or RGB (h, w, 3) images: one IHDR,
 one IDAT (every row with filter 0, zlib at level 6, PIL's default) and
@@ -7,7 +7,8 @@ give them; the bytes differ, since PIL picks its filters row by row.
 
 `image_size` returns (width, height), as PIL's `Image.open(path).size`,
 read from a PNG's IHDR or a JPEG's start-of-frame marker; anything else
-raises ValueError.
+raises ValueError. PNG decoding is data/images.py::read_png; JPEG reading
+and writing is io/jpeg.py.
 """
 
 from __future__ import annotations

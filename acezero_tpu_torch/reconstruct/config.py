@@ -96,7 +96,7 @@ class AceZeroConfig:
     ransac_iterations: int = 32
     ransac_threshold: float = 10.0
 
-    # --- visualization (ace_zero.py:147-155); not ported yet: True raises ---
+    # --- visualization (ace_zero.py:147-155): the progress video, viz/ ---
     render_visualization: bool = False
     render_marker_size: float = 0.03
     render_camera_z_offset: float = 4.0

@@ -11,7 +11,9 @@ it ends, with its wall seconds; the first failure raises and ends the run.
 
 Phases:
   0 device    the card, its power limit, the torch/CUDA versions
-  1 build     nvcc builds every kernel of the paths from csrc/, in parallel
+  1 build     nvcc builds every kernel of the paths from csrc/, in parallel,
+              and c++ the host JPEG codec (io/csrc/jpeg.cpp), with the
+              compiler's version and seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
               events, median) and resources: K1 (head chain forward) and K2
@@ -59,31 +61,42 @@ Phases:
               package's (SEEDDEPTH_JAX), ms per frame, and one frame on the
               card against the port's CPU path (max |d log-depth|)
  10 bare      the reconstruction CLI as a user runs it on a bare image glob:
-              no depth files (the learned seed-depth head), per-frame
-              calibration files, loop closure on, --export_point_cloud and
+              JPEG copies of the 60 frames (write_jpeg at BARE_JPEG, tinted
+              by JPEG_TINT to three components) with a calibration file
+              beside each; no depth files (the learned seed-depth head),
+              loop closure on, --export_point_cloud and
               --render_visualization, at full width and phase pipeline's cut
               budgets; counts zeroed just before and read just after; the
               rate at confidence 500 must reach BARE_SHARE, pc_final.ply
-              must hold points, the video's frames (12 relocalization frames
-              a registration, the mapping frames, the 150-frame sweep) must
-              decode to 720 x 1280 x 3 and show the scene; each frame's
-              pan camera, device render, overlays and PNG write are timed;
-              scene_load reads the decode cache phase pipeline filled
+              must hold points coloured from the JPEGs, the video's frames
+              (12 relocalization frames a registration, the mapping frames,
+              the 150-frame sweep) must decode to 720 x 1280 x 3 and show
+              the scene; each frame's pan camera, device render, overlays
+              and PNG write are timed; scene_load decodes the JPEGs cold
  11 render    the outputs of phase bare's folder (which it brings along):
               the renderer on the card against the CPU on the last
               visualizer state (RENDER_PIXEL_SHARE, and the same bits twice),
               the final-sweep CLI, export_cli point_cloud from the
               visualizer buffer (the pickle's cloud bit for bit) and from
               the network (K1), export_cli cameras, the Nerfstudio
-              transforms.json and the runner's missing-CLI error, and
-              Regressor.forward against the export's predict_coords bit for
-              bit; counts zeroed just before each main-path call and read
-              just after
- 12 spill     MappingTrainer on the shipped poses at full width, the device
+              transforms.json of the JPEG frames, the runner's missing-CLI
+              error and its JPEG downscale, and Regressor.forward against
+              the export's predict_coords bit for bit; counts zeroed just
+              before each main-path call and read just after
+ 12 jpeg      the host JPEG codec: the committed fixtures decode to PIL's
+              arrays (sha256, tests/data/jpeg/pil_digests.json), write_jpeg
+              writes PIL's bytes for the JPEG_ROUNDTRIP frames, then
+              JPEG_PHOTO_FRAMES frames of JPEG_PHOTO_HW: read_jpeg's ms and
+              MP/s, threads against one thread, decode_to_canvas at a 480
+              short side with each of JPEG_WORKERS (each in a fresh
+              process: ms per image, MP/s, the peak RSS growth), and the
+              warm read of the decode cache on phase bare's JPEG glob (a
+              hit)
+ 13 spill     MappingTrainer on the shipped poses at full width, the device
               buffer against the host-spill buffer (--training_buffer_cpu)
               from one seed: equal fills and bit-equal parameters after
               SPILL_STEPS[0] steps, then SPILL_STEPS[1] steps of each timed
- 13 mesh      the data mesh (parallel/mesh.py) on a logical mesh of
+ 14 mesh      the data mesh (parallel/mesh.py) on a logical mesh of
               MESH_SHARDS shards on cuda:0, and on every card when there are
               several: MappingTrainer's fill sharded (the same rows as one
               device's), gather_rows at full width bit-equal to indexing,
@@ -93,7 +106,7 @@ Phases:
               device, K1 and K2 launches counted per device (every mesh
               device launches both), counts zeroed just before each run and
               read just after; the devices' overlap under torch.profiler
- 14 pretrain  the pretraining slice: the encoder pretraining CLI at its
+ 15 pretrain  the pretraining slice: the encoder pretraining CLI at its
               default widths with the v6 recipe's contrastive weight (steps
               cut, PRETRAIN_ARGS; K1 and K2 once an image a step, counts
               zeroed just before and read just after), steps past its
@@ -105,7 +118,7 @@ Phases:
               SHORTFIT_MIN_INLIER10), then the seed-depth pretraining CLI on
               the v4 corpus (cut, DEPTH_PRETRAIN) and its first steps on the
               card against the CPU
- 15 report    one JSON line describing every kernel, then the card's
+ 16 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons), and
@@ -118,10 +131,13 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
 import contextlib
 import glob
+import hashlib
 import json
 import logging
+import os
 import shutil
 import statistics
 import subprocess
@@ -137,7 +153,7 @@ HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
 PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
-          "seeddepth", "bare", "render", "spill", "mesh", "pretrain", "report")
+          "seeddepth", "bare", "render", "jpeg", "spill", "mesh", "pretrain", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -384,6 +400,26 @@ PRETRAIN_CPU_STEPS = 3
 PRETRAIN_CPU_STEP0 = 200
 PRETRAIN_CPU_RTOL = 5e-3
 PRETRAIN_UPDATE_TOL = 0.15
+# the JPEG codec (io/csrc/jpeg.cpp): phase bare reads the frames as JPEGs
+# written by write_jpeg at BARE_JPEG (quality, subsampling); phase jpeg
+# decodes the committed fixtures (tests/data/jpeg, scripts/make_jpeg_fixtures.py)
+# and writes the JPEG_ROUNDTRIP frames (jpeg_roundtrip_frame), each decode
+# held to PIL's by sha256 (pil_digests.json), then times decode_to_canvas on
+# JPEG_PHOTO_FRAMES frames of JPEG_PHOTO_HW (Mip-NeRF 360's full size, the
+# chesslike frames enlarged by pil_resize_bilinear) at JPEG_PHOTO_QUALITY,
+# with each of JPEG_WORKERS
+BARE_JPEG = (90, "4:2:0")
+# the chesslike frames are gray; each JPEG copy adds this constant tint to
+# the gray value of R, G and B (clipped), so the files are three-component
+# 4:2:0 JPEGs and the point cloud's colours show where they came from. Its
+# luma is 0.299 * 12 - 0.587 * 4 - 0.114 * 11 = -0.014 of a level
+JPEG_TINT = (12, -4, -11)
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+JPEG_ROUNDTRIP = ((75, "4:2:0"), (90, "4:2:0"), (95, "4:4:4"), (75, "4:2:0"))
+JPEG_PHOTO_HW = (3286, 4946)
+JPEG_PHOTO_FRAMES = 8
+JPEG_PHOTO_QUALITY = 95
+JPEG_WORKERS = (1, 16)
 FRAMES = "frame_*.png"
 N_FRAMES = 60
 DEVICE = "cuda"
@@ -795,6 +831,67 @@ def rel_update(torch, tree_leaves, after, before, want_after) -> float:
     return float((a - w).norm() / (w - b).norm())
 
 
+def jpeg_roundtrip_frame(np, i: int):
+    """The i-th frame phase jpeg writes with write_jpeg: integer ramps and a
+    hashed texture, no random draws, so every numpy gives the same pixels;
+    frames 0-2 RGB, frame 3 gray, odd frames at a size off the MCU grid."""
+    h, w = (48, 64) if i % 2 == 0 else (37, 53)
+    y, x = np.mgrid[:h, :w].astype(np.int64)
+    r = (x * (3 + i) + y * 2 + (x * y * 7919 + i * 104729) % 47) % 256
+    g = (y * (5 + i) + (x * 31 + y * 17 * (i + 1)) % 29) % 256
+    b = ((x + y) * 4 + (x ^ y) * (i + 1)) % 256
+    img = np.stack([r, g, b], -1).astype(np.uint8)
+    return img[..., 1].copy() if i == 3 else img
+
+
+def tinted(np, img):
+    """(h, w, 3) uint8: a gray (or RGB) frame with JPEG_TINT added to its
+    channels."""
+    base = img.astype(np.int16) if img.ndim == 3 else img.astype(np.int16)[..., None]
+    return np.clip(base + np.asarray(JPEG_TINT, np.int16), 0, 255).astype(np.uint8)
+
+
+def array_digest(arr) -> str:
+    """sha256 of a decoded image's bytes (C order)."""
+    return hashlib.sha256(arr.tobytes()).hexdigest()
+
+
+def photo_decode_child(root: Path, pattern: str, workers: int) -> dict:
+    """decode_to_canvas of a JPEG glob at a 480 short side in a fresh
+    process: seconds, a digest of the canvases, and the growth of the
+    resident set over the call (VmRSS sampled every 2 ms from just before
+    it: the process's peak, ru_maxrss, is the import's)."""
+    code = (
+        "import glob, hashlib, json, resource, sys, threading, time\n"
+        f"sys.path.insert(0, {str(root)!r})\n"
+        "from acezero_tpu_torch.data.images import decode_to_canvas\n"
+        "def rss_kib():\n"
+        "    with open('/proc/self/status') as f:\n"
+        "        return next(int(ln.split()[1]) for ln in f if ln.startswith('VmRSS:'))\n"
+        "peak, done = [rss_kib()], threading.Event()\n"
+        "def sample():\n"
+        "    while not done.wait(0.002):\n"
+        "        peak.append(rss_kib())\n"
+        f"paths = sorted(glob.glob({pattern!r}))\n"
+        "r0, m0 = peak[0], resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+        "t = threading.Thread(target=sample)\n"
+        "t.start()\n"
+        "t0 = time.perf_counter()\n"
+        f"out = decode_to_canvas(paths, short_size=480, num_workers={workers})\n"
+        "dt = time.perf_counter() - t0\n"
+        "done.set()\n"
+        "t.join()\n"
+        "m1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+        "print(json.dumps({'seconds': dt, 'frames': len(paths), 'rss_growth_mib': (max(peak) - r0) / 1024,"
+        " 'rss_samples': len(peak), 'maxrss_growth_mib': (m1 - m0) / 1024,"
+        " 'canvas_shape': list(out.canvases.shape), 'sha256': hashlib.sha256(out.canvases.tobytes()).hexdigest()}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"decode_to_canvas with {workers} workers failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def parse_phases(argv) -> list[str]:
     """The phases to run, in PHASES order, `device` always among them and
     `bare` whenever `render` is (it reads bare's output). An unknown name
@@ -836,12 +933,16 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.io.pose_files import PoseFileEntry
     from acezero_tpu_torch.reconstruct import loopclose as lc
     from acezero_tpu_torch.reconstruct import pipeline as tpipe
+    from acezero_tpu_torch.reconstruct.config import AceZeroConfig
     from acezero_tpu_torch.ops import build
     from acezero_tpu_torch.ops import fused_head as fh
     from acezero_tpu_torch.registration.driver import _canvas_prologue
     from acezero_tpu_torch.registration.ransac import RansacConfig, estimate_poses_batch
     from acezero_tpu_torch.data.depth import learned_depth_estimator
-    from acezero_tpu_torch.data.images import decode_to_canvas, read_png, read_rgb
+    from acezero_tpu_torch.data.images import decode_to_canvas, pil_resize_bilinear, read_png, read_rgb
+    from acezero_tpu_torch.io import jpeg as tjpeg
+    from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
+    from acezero_tpu_torch.io.pose_files import write_pose_file
     from acezero_tpu_torch.data.augment import normalize_images
     from acezero_tpu_torch.cli import export_cli, render_final_sweep_cli
     from acezero_tpu_torch.export import nerf, nerfstudio_runner
@@ -871,8 +972,15 @@ def main(argv=None) -> int:
     if "build" in phases:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
-            build.build([fh.KERNEL, fh.KERNEL_BWD])
-            rec["seconds_nvcc"] = time.perf_counter() - t0
+            # the host JPEG codec (c++) builds while nvcc builds the kernels
+            with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+                host = ex.submit(build.build_host, tjpeg.SOURCE)
+                build.build([fh.KERNEL, fh.KERNEL_BWD])
+                rec["seconds_nvcc"] = time.perf_counter() - t0
+                host.result()
+            info = build.build_info["jpeg"]
+            rec.update(seconds_host=info["seconds"], host_compiler=info.get("compiler"),
+                       host_library=build.host_target(tjpeg.SOURCE).name, host_log=info["log"][-500:])
             for name in (fh.KERNEL, fh.KERNEL_BWD):
                 log = build.build_info[name]["log"]
                 rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
@@ -1456,7 +1564,8 @@ def main(argv=None) -> int:
             require(dlog <= SEEDDEPTH_CPU_TOL, f"card and CPU log-depth differ by {dlog} > {SEEDDEPTH_CPU_TOL}")
 
     bare_launches = None  # launch counts of phase bare
-    bare_out = None  # phase bare's output folder, read by phase render
+    bare_out = bare_glob = None  # phase bare's output folder and JPEG glob, read by phases render and jpeg
+    rec_bare_scene_load = None  # phase bare's cold scene_load seconds on its JPEGs
     if "bare" in phases:
         with phase("bare", {}) as rec:
             rec.update(kind=kind, nvidia_smi=smi, cuts={**PIPELINE_CUTS, **PIPELINE_OVERRIDES}, floor=BARE_SHARE,
@@ -1492,15 +1601,22 @@ def main(argv=None) -> int:
                     rounds.append((result["iterations"], train_cfg.chunk_steps, train_cfg.iterations_output))
                 return result
 
-            # the output folder outlives the phase: phase render reads it
+            # the output folder outlives the phase: phase render reads it.
+            # The frames as a user hands them over: JPEG copies (write_jpeg at
+            # BARE_JPEG, tinted to three components), each with a focal file
+            # beside it, from the scene's focal_length.txt
             tmp = Path(work) / "bare"
-            # one focal file per frame, from the scene's focal_length.txt
             focal = (SCENE / "focal_length.txt").read_text().strip()
-            (tmp / "calib").mkdir(parents=True)
+            (tmp / "jpg").mkdir(parents=True)
+            t0 = time.perf_counter()
             for f in sorted(glob.glob(str(SCENE / FRAMES))):
-                (tmp / "calib" / (Path(f).stem + ".txt")).write_text(focal + "\n")
+                write_jpeg(tmp / "jpg" / (Path(f).stem + ".jpg"), tinted(np, read_png(f)), *BARE_JPEG)
+                (tmp / "jpg" / (Path(f).stem + ".txt")).write_text(focal + "\n")
+            bare_glob = str(tmp / "jpg" / FRAMES.replace(".png", ".jpg"))
+            rec.update(jpeg=list(BARE_JPEG), tint=list(JPEG_TINT), jpeg_write_seconds=time.perf_counter() - t0,
+                       jpeg_bytes=sum(p_.stat().st_size for p_ in (tmp / "jpg").glob("*.jpg")))
             out_dir = tmp / "out"
-            argv = [str(SCENE / FRAMES), str(out_dir), "--calibration_files", str(tmp / "calib" / "*.txt"),
+            argv = [bare_glob, str(out_dir), "--calibration_files", str(tmp / "jpg" / "frame_*.txt"),
                     "--encoder_path", str(ENCODER), "--export_point_cloud", "true", "--render_visualization", "true",
                     *flags, "--device", DEVICE]
             profiling.reset_stages()
@@ -1542,10 +1658,15 @@ def main(argv=None) -> int:
                         "mapping": sum(mapping_frames(*r) for r in rounds)}
             per_frame = {part: {"median_ms": statistics.median(v) * 1e3 if v else None, "total_s": sum(v)}
                          for part, v in (viz.frame_seconds.items() if viz else ())}
+            # the cloud's colours come from the tinted JPEGs (R over B by about
+            # 23 levels), not from the gray canvases (R = B)
+            rgb_tint = float(rgb[:, 0].astype(np.float64).mean() - rgb[:, 2].astype(np.float64).mean()) \
+                if rgb is not None and len(rgb) else None
             rec.update(
                 wall_seconds=wall, stage_seconds={k: v[0] for k, v in totals.items()},
                 stage_calls={k: v[1] for k, v in totals.items()}, depth_heads=heads,
-                scene_load_seconds={"pipeline": pipe_scene_load, "bare": totals.get("scene_load", (None,))[0]},
+                scene_load_seconds={"pipeline": pipe_scene_load, "bare_cold_jpeg": totals.get("scene_load", (None,))[0]},
+                ply_mean_r_minus_b=rgb_tint,
                 rounds=result["iterations"], rate_history=result["rate_history"],
                 registration_rates=dict(zip(("500", "1000", "2000", "4000"), rates)),
                 focal_estimate=result["focal_estimate"], artifacts=artifacts,
@@ -1570,6 +1691,7 @@ def main(argv=None) -> int:
             require(len(export_shapes) > 0, "the point-cloud export never launched fused_head_fwd")
             require(len(xyz) > 0 and rec["ply_finite"] and rgb is not None and len(rgb) == len(xyz),
                     f"pc_final.ply holds {len(xyz)} points")
+            require(rgb_tint > 10, f"pc_final.ply's colours are not the JPEGs' (mean R - B {rgb_tint})")
             require(rates[0] >= BARE_SHARE,
                     f"the bare run registered {rates[0]:.1%} of the frames at confidence 500 (floor {BARE_SHARE:.1%})")
             require(viz is not None and viz.frames_by_kind["sweep"] == SWEEP_FRAMES
@@ -1580,6 +1702,7 @@ def main(argv=None) -> int:
             require(len(rec["register_pickles"]) == registrations and len(render_shapes) > 0,
                     f"pickles {rec['register_pickles']}, render-hook K1 launches {render_shapes}")
             bare_out = out_dir
+            rec_bare_scene_load = totals.get("scene_load", (None,))[0]
 
     render_launches = None  # launch counts of phase render's main-path calls
     if "render" in phases:
@@ -1678,10 +1801,11 @@ def main(argv=None) -> int:
             rec["cameras"] = ply_header_counts(out / "cameras.ply")
             require(rec["cameras"] == {"vertex": 5 * N_FRAMES, "face": 6 * N_FRAMES}, f"cameras {rec['cameras']}")
 
-            # 6. the Nerfstudio export, and the runner without Nerfstudio
-            transforms = json.loads(nerf.export_transforms_json(bare_out / "poses_final.txt", str(SCENE / FRAMES),
+            # 6. the Nerfstudio export of the JPEG frames, and the runner
+            # without Nerfstudio
+            transforms = json.loads(nerf.export_transforms_json(bare_out / "poses_final.txt", bare_glob,
                                                                 out / "nerf").read_text())
-            test_want = [f for i, f in enumerate(sorted(glob.glob(str(SCENE / FRAMES)))) if i % 8 == 4]
+            test_want = [f for i, f in enumerate(sorted(glob.glob(bare_glob))) if i % 8 == 4]
             rec["nerfstudio"] = {"frames": len(transforms["frames"]), "train": len(transforms["train_filenames"]),
                                  "test": len(transforms["test_filenames"]),
                                  "point_cloud": transforms.get("ply_file_path"), "ns_train": shutil.which("ns-train")}
@@ -1690,14 +1814,51 @@ def main(argv=None) -> int:
                     f"transforms.json: {rec['nerfstudio']}")
             if rec["nerfstudio"]["ns_train"] is None:
                 try:
-                    nerfstudio_runner.run_benchmark(bare_out / "poses_final.txt", str(SCENE / FRAMES), out / "bench")
+                    nerfstudio_runner.run_benchmark(bare_out / "poses_final.txt", bare_glob, out / "bench")
                     raise AssertionError("run_benchmark ran without ns-train")
                 except RuntimeError as exc:
                     rec["nerfstudio"]["runner_error"] = str(exc)[:200]
                     require("ns-train" in str(exc), f"the runner's error does not name ns-train: {exc}")
+                # the runner's downscale (before it looks for ns-train) of
+                # three JPEG frames enlarged to 1,280 pixels wide: JPEGs 640
+                # wide under the sources' names, close to the frames at that
+                # size (4.0-4.3 levels a pixel on the CPU after the three
+                # JPEG writes and the two resizes; another frame is 20 or
+                # more)
+                big = out / "big"
+                big.mkdir()
+                srcs = sorted(glob.glob(bare_glob))[:3]
+                bigs = []
+                for f in srcs:
+                    bigs.append(str(big / Path(f).name))
+                    src = read_jpeg(f)
+                    big_hw = (round(src.shape[0] * 1280 / src.shape[1]), 1280)
+                    write_jpeg(bigs[-1], pil_resize_bilinear(src, *big_hw), *BARE_JPEG)
+                write_pose_file(big / "poses.txt", [PoseFileEntry(b, e.pose_w2c, 2 * e.focal_length, 2000.0)
+                                                    for b, e in zip(bigs, entries)])
+                t0 = time.perf_counter()
+                try:
+                    nerfstudio_runner.run_benchmark(big / "poses.txt", str(big / "*.jpg"), out / "bench_big")
+                    raise AssertionError("run_benchmark ran without ns-train")
+                except RuntimeError as exc:
+                    require("ns-train" in str(exc), f"the runner's error does not name ns-train: {exc}")
+                frames_out = json.loads((out / "bench_big" / "transforms.json").read_text())["frames"]
+                small = [read_jpeg(fr["file_path"]) for fr in frames_out]
+                by_name = {Path(f).name: f for f in srcs}  # transforms.json lists the frames in glob order
+                diffs = [float(np.abs(a.astype(np.int16) - pil_resize_bilinear(
+                    read_jpeg(by_name[Path(fr["file_path"]).name]), *a.shape[:2])).mean())
+                    for a, fr in zip(small, frames_out)]
+                rec["nerfstudio"]["downscale"] = {
+                    "seconds": time.perf_counter() - t0, "sizes": [[fr["h"], fr["w"]] for fr in frames_out],
+                    "files": [Path(fr["file_path"]).name for fr in frames_out], "mean_abs_diff_to_frame": diffs,
+                    "fl_x": [fr["fl_x"] for fr in frames_out]}
+                require(all(fr["w"] == 640 and fr["h"] == round(big_hw[0] / 2) for fr in frames_out)
+                        and all(a.shape == (fr["h"], fr["w"], 3) for a, fr in zip(small, frames_out))
+                        and sorted(Path(fr["file_path"]).name for fr in frames_out) == sorted(by_name)
+                        and max(diffs) < 8.0, f"the runner's JPEG downscale: {rec['nerfstudio']['downscale']}")
 
             # 7. Regressor against the export path, one K1 launch each
-            files = sorted(glob.glob(str(SCENE / FRAMES)))[:REGRESSOR_FRAMES]
+            files = sorted(glob.glob(bare_glob))[:REGRESSOR_FRAMES]
             canvases = decode_to_canvas(files, short_size=480).canvases
             reg = Regressor.create_from_split_state_dict(ENCODER, final_head, device=DEVICE)
             shapes = []
@@ -1713,6 +1874,105 @@ def main(argv=None) -> int:
             require(rec["regressor"]["bit_equal"] and np.isfinite(got).all() and render_launches["regressor"] == 2,
                     f"Regressor against predict_coords: {rec['regressor']}")
             render_launches["shapes"] = rec["network_export"]["fused_head_fwd_shapes"] + shapes
+
+    if "jpeg" in phases:
+        with phase("jpeg", {}) as rec:
+            rec.update(kind=kind, nvidia_smi=smi, host_compiler=build.build_info.get("jpeg", {}).get("compiler"))
+            # (a) the committed fixtures decode to PIL's arrays
+            digests = json.loads((JPEG_FIXTURES / "pil_digests.json").read_text())
+            fixtures = {}
+            for name, want in sorted(digests["files"].items()):
+                got = read_jpeg(JPEG_FIXTURES / name)
+                fixtures[name] = list(got.shape) == want["shape"] and array_digest(got) == want["sha256"]
+            rec["fixtures_equal_to_pil"] = f"{sum(fixtures.values())}/{len(fixtures)}"
+            require(all(fixtures.values()), f"fixtures not decoded to PIL's bits: {[n for n, v in fixtures.items() if not v]}")
+
+            # (b) write_jpeg writes PIL's bytes, and they decode to PIL's arrays
+            roundtrip = []
+            for entry in digests["roundtrip"]:
+                path = Path(work) / f"roundtrip_{entry['frame']}.jpg"
+                write_jpeg(path, jpeg_roundtrip_frame(np, entry["frame"]), entry["quality"], entry["subsampling"])
+                roundtrip.append({"frame": entry["frame"], "quality": entry["quality"],
+                                  "subsampling": entry["subsampling"],
+                                  "bytes_equal_to_pil": hashlib.sha256(path.read_bytes()).hexdigest()
+                                  == entry["bytes_sha256"],
+                                  "decode_equal_to_pil": array_digest(read_jpeg(path)) == entry["sha256"]})
+            rec["roundtrip"] = roundtrip
+            require(all(r["bytes_equal_to_pil"] and r["decode_equal_to_pil"] for r in roundtrip),
+                    f"write_jpeg round trip: {roundtrip}")
+
+            # (c) photo-size frames: the chesslike frames enlarged to
+            # JPEG_PHOTO_HW, written at JPEG_PHOTO_QUALITY (4:2:0)
+            photo = Path(work) / "photo"
+            photo.mkdir()
+            srcs = sorted(glob.glob(str(SCENE / FRAMES)))[:: N_FRAMES // JPEG_PHOTO_FRAMES][:JPEG_PHOTO_FRAMES]
+
+            def make_photo(i_f):
+                i, f = i_f
+                big = pil_resize_bilinear(tinted(np, read_png(f)), *JPEG_PHOTO_HW)
+                write_jpeg(photo / f"photo_{i:02d}.jpg", big, JPEG_PHOTO_QUALITY)
+
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=JPEG_PHOTO_FRAMES) as ex:
+                list(ex.map(make_photo, enumerate(srcs)))
+            files = sorted(str(p_) for p_ in photo.glob("*.jpg"))
+            mp = JPEG_PHOTO_HW[0] * JPEG_PHOTO_HW[1] / 1e6
+            rec["photo"] = {"frames": len(files), "hw": list(JPEG_PHOTO_HW), "quality": JPEG_PHOTO_QUALITY,
+                            "megapixels": mp, "make_seconds": time.perf_counter() - t0,
+                            "mean_bytes": statistics.mean(Path(f).stat().st_size for f in files)}
+            # the codec alone, one thread, the files warm in the page cache
+            decode_s = []
+            for f in files[:3]:
+                t0 = time.perf_counter()
+                img = read_jpeg(f)
+                decode_s.append(time.perf_counter() - t0)
+            require(img.shape == (*JPEG_PHOTO_HW, 3), f"a photo frame decodes to {img.shape}")
+            del img
+            # threads: ctypes releases the GIL, so the decodes overlap
+            t0 = time.perf_counter()
+            for f in files:
+                read_jpeg(f)
+            serial = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=len(files)) as ex:
+                shapes = [a.shape for a in ex.map(read_jpeg, files)]
+            threaded = time.perf_counter() - t0
+            rec["codec"] = {"read_jpeg_ms": statistics.median(decode_s) * 1e3,
+                            "read_jpeg_mp_per_s": mp / statistics.median(decode_s),
+                            "serial_seconds": serial, "threaded_seconds": threaded, "threads": len(files),
+                            "thread_speedup": serial / threaded, "cpus": os.cpu_count()}
+            require(all(sh == (*JPEG_PHOTO_HW, 3) for sh in shapes), "a threaded decode gave another shape")
+            require(serial / threaded > 2.0, f"{len(files)} threads decode only {serial / threaded:.2f}x as fast as one: "
+                                             "the GIL is not released")
+            # decode_to_canvas, each worker count in a fresh process
+            runs = {w: photo_decode_child(ROOT, str(photo / "*.jpg"), w) for w in JPEG_WORKERS}
+            for w, r in runs.items():
+                r.update(ms_per_image=r["seconds"] / r["frames"] * 1e3, mp_per_s=r["frames"] * mp / r["seconds"])
+            rec["decode_to_canvas"] = {str(w): r for w, r in runs.items()}
+            w1, wn = JPEG_WORKERS[0], JPEG_WORKERS[-1]
+            rec["decode_to_canvas_speedup"] = runs[w1]["seconds"] / runs[wn]["seconds"]
+            require(len({r["sha256"] for r in runs.values()}) == 1 and runs[w1]["frames"] == JPEG_PHOTO_FRAMES,
+                    f"decode_to_canvas differs between worker counts: {rec['decode_to_canvas']}")
+            shutil.rmtree(photo)
+
+            # (d) the warm read of the decode cache that the bare run filled
+            # (without phase bare: JPEG copies of the frames, read cold first)
+            cache_dir = AceZeroConfig().decode_cache_dir  # the reconstruction CLI's default
+            pattern = bare_glob
+            if pattern is None:
+                (Path(work) / "jpeg_cache").mkdir()
+                for f in sorted(glob.glob(str(SCENE / FRAMES))):
+                    write_jpeg(Path(work) / "jpeg_cache" / (Path(f).stem + ".jpg"), tinted(np, read_png(f)), *BARE_JPEG)
+                pattern = str(Path(work) / "jpeg_cache" / "*.jpg")
+                t0 = time.perf_counter()
+                decode_to_canvas(sorted(glob.glob(pattern)), short_size=480, cache_dir=cache_dir)
+                rec["cache_cold_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            warm = decode_to_canvas(sorted(glob.glob(pattern)), short_size=480, cache_dir=cache_dir)
+            rec["cache"] = {"glob_of": "bare" if bare_glob else "jpeg", "warm_seconds": time.perf_counter() - t0,
+                            "hit": isinstance(warm.canvases, np.memmap), "frames": len(warm.canvases),
+                            "bare_cold_scene_load_seconds": rec_bare_scene_load}
+            require(rec["cache"]["hit"] and len(warm.canvases) == N_FRAMES, f"the decode cache missed: {rec['cache']}")
 
     spill_launches = None  # launch counts of phase spill
     if "spill" in phases:

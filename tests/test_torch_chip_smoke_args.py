@@ -33,6 +33,10 @@ def test_default_runs_every_phase():
     ("report,pretrain,spill,build", ["device", "build", "spill", "pretrain", "report"]),
     ("mesh,build", ["device", "build", "mesh"]),
     ("pretrain,mesh,spill", ["device", "spill", "mesh", "pretrain"]),
+    ("jpeg", ["device", "jpeg"]),
+    ("jpeg,build", ["device", "build", "jpeg"]),
+    ("spill,jpeg,render", ["device", "bare", "render", "jpeg", "spill"]),
+    ("jpeg,bare", ["device", "bare", "jpeg"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -132,14 +136,14 @@ def test_core_with_fits_reads_every_selected_pair():
 
 
 def test_new_phases_after_pipeline_in_order():
-    """seeddepth, bare, render and spill run after pipeline (bare reads the
-    decode cache pipeline filled, render reads bare's output) and before
+    """seeddepth, bare, render, jpeg and spill run after pipeline (render
+    reads bare's output, jpeg bare's JPEG glob and decode cache) and before
     report; bare reuses pipeline's cut budgets, its floor sits three frames
     of 60 under the JAX package's rate, and seeddepth holds the JAX
     package's statistics within 0.01."""
     phases = list(chip_smoke.PHASES)
-    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "spill", "mesh",
-                                                 "pretrain", "report"]
+    assert phases[phases.index("pipeline"):] == ["pipeline", "seeddepth", "bare", "render", "jpeg", "spill",
+                                                 "mesh", "pretrain", "report"]
     n = chip_smoke.N_FRAMES
     assert round(chip_smoke.BARE_SHARE * n) == round(chip_smoke.BARE_JAX_RATE * n) - 3 == 16
     assert chip_smoke.BARE_SHARE == 16 / n  # a frame count: 16 registered frames reach it exactly
@@ -291,3 +295,21 @@ def test_pretrain_draws_drive_a_chunk_on_the_cpu():
                                   tep.corpus_to_device(corpus, cfg, "cpu"), 0, cfg, HeadConfig(num_head_blocks=0),
                                   draws=draws)
     assert all(torch.isfinite(v).all() and v.shape == (2,) for v in st.values())
+
+
+def test_jpeg_phase_follows_bare_and_its_inputs_stand_alone():
+    """Phase jpeg runs after bare (it reads bare's JPEG glob and cache), and
+    the round-trip frames need neither PIL nor random draws."""
+    import numpy as np
+
+    order = list(chip_smoke.PHASES)
+    assert order.index("bare") < order.index("render") < order.index("jpeg") < order.index("spill")
+    frames = [chip_smoke.jpeg_roundtrip_frame(np, i) for i in range(len(chip_smoke.JPEG_ROUNDTRIP))]
+    assert [f.shape for f in frames] == [(48, 64, 3), (37, 53, 3), (48, 64, 3), (37, 53)]
+    assert all(f.dtype == np.uint8 and f.std() > 20 for f in frames)
+    assert np.array_equal(frames[0], chip_smoke.jpeg_roundtrip_frame(np, 0))
+    gray = np.array([[0, 100, 255]], np.uint8)
+    assert chip_smoke.tinted(np, gray).tolist() == [[[12, 0, 0], [112, 96, 89], [255, 251, 244]]]
+    luma = np.dot(chip_smoke.JPEG_TINT, (0.299, 0.587, 0.114))
+    assert abs(luma) < 0.05
+    assert (chip_smoke.JPEG_FIXTURES / "pil_digests.json").exists()

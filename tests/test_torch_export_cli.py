@@ -3,7 +3,8 @@ against acezero_tpu's.
 
 Camera meshes, transforms.json, the --visualization_buffer PLY and the
 runner's command lines are exact. The runner's downscale of a PNG wider
-than 640 pixels gives PIL's pixels (the PNG bytes differ: io/png.py). The
+than 640 pixels gives PIL's pixels (the PNG bytes differ: io/png.py), of a
+JPEG PIL's pixels and bytes (io/jpeg.py). The
 --network route predicts its own coordinates, so its cloud is held to the
 JAX CLI's at tests/test_torch_export.py's tolerance: the same point count,
 and COMMON_SHARE of the points within COORD_TOL of the cloud's extent of a
@@ -45,6 +46,7 @@ from acezero_tpu_torch.cli import render_final_sweep_cli
 from acezero_tpu_torch.data.images import read_png
 from acezero_tpu_torch.export.cameras import export_camera_meshes as t_cameras
 from acezero_tpu_torch.export.nerf import export_transforms_json as t_transforms
+from acezero_tpu_torch.io.jpeg import read_jpeg
 from acezero_tpu_torch.io.ply import read_ply_points
 from acezero_tpu_torch.viz import overlay as tov
 
@@ -178,12 +180,31 @@ def test_runner_missing_cli_and_jpeg_downscale(pose_scene, tmp_path, monkeypatch
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     with pytest.raises(RuntimeError, match="ns-train"):
         trunner.run_benchmark(pose_file, str(scene / "img_*.png"), tmp_path / "o")
+    # JPEG sources wider than 640 pixels: both runners downscale them before
+    # they look for ns-train, and write JPEGs under the sources' names
     big = tmp_path / "jpg"
     big.mkdir()
-    Image.fromarray(np.zeros((20, 700, 3), np.uint8)).save(big / "a.jpg")
-    write_pose_file(big / "poses.txt", _entries([big / "a.jpg"], conf=lambda i: 2000.0))
-    with pytest.raises(ValueError, match="no JPEG codec"):
-        trunner.run_benchmark(big / "poses.txt", str(big / "*.jpg"), tmp_path / "o2")
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[:300, :900]
+    files = []
+    for i, mode in enumerate(("RGB", "L", "RGB")):
+        rgb = np.stack([(xx + 5 * i) % 256, (yy * 2) % 256, (xx - yy) % 256], -1) + rng.integers(0, 9, (300, 900, 3))
+        files.append(big / f"a{i}.jpg")
+        Image.fromarray(np.clip(rgb, 0, 255).astype(np.uint8)).convert(mode).save(files[-1], quality=90)
+    write_pose_file(big / "poses.txt", _entries(files, conf=lambda i: 2000.0))
+    out = {}
+    for name, mod in (("j", jrunner), ("t", trunner)):
+        with pytest.raises(RuntimeError, match="ns-train"):
+            mod.run_benchmark(big / "poses.txt", str(big / "*.jpg"), tmp_path / f"o_{name}")
+        out[name] = json.loads((tmp_path / f"o_{name}" / "transforms.json").read_text())
+    frames_t, frames_j = out["t"]["frames"], out["j"]["frames"]
+    _assert_transforms_equal({"frames": [{k: v for k, v in f.items() if k != "file_path"} for f in frames_t]},
+                             {"frames": [{k: v for k, v in f.items() if k != "file_path"} for f in frames_j]})
+    assert frames_t[0]["w"] == 640 and frames_t[0]["h"] == 213
+    for ft, fj in zip(frames_t, frames_j):
+        assert Path(ft["file_path"]).name == Path(fj["file_path"]).name and ft["file_path"].endswith(".jpg")
+        assert np.array_equal(read_jpeg(ft["file_path"]), np.asarray(Image.open(fj["file_path"])))
+        assert Path(ft["file_path"]).read_bytes() == Path(fj["file_path"]).read_bytes()
 
 
 # ------------------------------------------------------------- export_cli

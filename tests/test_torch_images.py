@@ -81,7 +81,13 @@ def test_decoder_matches_pil_synthetic(tmp_path, channels, filters):
 
 
 def test_decoder_rejects_unsupported(tmp_path):
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(tmp_path / "p.png")
+    # RGB at bit depth 4, which PNG does not allow (palette images now decode:
+    # tests/test_torch_jpeg.py)
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "p.png")
+    data = bytearray((tmp_path / "p.png").read_bytes())
+    data[24] = 4
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    (tmp_path / "p.png").write_bytes(bytes(data))
     with pytest.raises(ValueError, match="unsupported PNG"):
         timg.read_png(tmp_path / "p.png")
     (tmp_path / "n.png").write_bytes(b"not a png")
