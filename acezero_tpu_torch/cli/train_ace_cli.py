@@ -157,7 +157,7 @@ def main(argv: list[str] | None = None) -> dict:
         if depth_files is None:
             raise ValueError(
                 "Depth supervision requested (pose seed) but no --depth_files; "
-                "in-process depth estimators are not ported yet."
+                "in-process depth estimators are available via the Python API."
             )
         # depth files match the FULL rgb glob by alphabetical index; the scene
         # may be a subset in another order, so map them by rgb file name

@@ -6,7 +6,8 @@ numpy: gray at bit depths 1, 2, 4, 8 and 16, palette, gray+alpha, RGB and
 RGBA, all five row filters, Adam7 interlacing; a palette image becomes RGB
 and 1-, 2- and 4-bit gray is scaled to 8 bits, as PIL gives them to the JAX
 package. JPEG files decode in io/csrc/jpeg.cpp (io/jpeg.py) to PIL's own
-pixels. Anything else raises ValueError naming the file.
+pixels; a four-component JPEG comes back as a `CmykImage`, so its mode
+travels with it. Anything else raises ValueError naming the file.
 
 Each image is turned to ITU-R 601 luma, resized so its short side matches
 `short_size`, and centred on a canvas shared by the whole set, rounded up
@@ -16,11 +17,15 @@ truncation to uint8. A 16-bit image first becomes what PIL makes of it
 (`pil_uint8`). `decode_to_canvas` reads the sizes from the files' headers,
 fixes the canvas, then decodes, resizes and places each image in one
 worker task, so at most `num_workers` decoded images are held at once
-(the JAX package decodes all of them before placing any).
+(the JAX package decodes all of them before placing any). When an explicit
+canvas is smaller than any resized image, every image takes the JAX
+package's PIL path instead: `pil_luma_u8`, `pil_resize_bilinear` and a
+centre crop.
 
 The colour paths that the JAX package runs through PIL are reproduced
-exactly: `read_rgb` (`convert("RGB")`), `pil_luma_u8` (`convert("L")`,
-Pillow's integer luma) and `pil_resize_bilinear` (`resize(BILINEAR)`).
+exactly: `read_rgb` and `pil_rgb` (`convert("RGB")`, CMYK included),
+`pil_luma_u8` (`convert("L")`, Pillow's integer luma) and
+`pil_resize_bilinear` (`resize(BILINEAR)`).
 
 `decode_to_canvas(cache_dir=...)` keeps decoded canvases in a cache keyed
 by the files' path, size and mtime_ns and the decode parameters, as the JAX
@@ -204,34 +209,62 @@ def read_png(path) -> np.ndarray:
     return img[..., 0] if channels == 1 else img
 
 
-def read_image(path) -> np.ndarray:
+@dataclass(frozen=True, eq=False)
+class CmykImage:
+    """A four-component JPEG as PIL opens it, mode "CMYK": `pixels` is
+    `np.asarray(Image.open(path))`, (h, w, 4) uint8. It is not an array, so
+    it cannot be taken for an RGBA image of the same shape; `pil_rgb`,
+    `pil_luma_u8` and `gray_resize` convert it as PIL does."""
+
+    pixels: np.ndarray
+    mode = "CMYK"
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return self.pixels.shape
+
+
+def read_image(path) -> "np.ndarray | CmykImage":
     """Decode a PNG (`read_png`) or a JPEG (io/jpeg.py::read_jpeg), told
-    apart by the file's signature; anything else raises ValueError."""
+    apart by the file's signature; a four-component JPEG comes back as a
+    `CmykImage`. Anything else raises ValueError."""
     with open(path, "rb") as f:
         head = f.read(len(_PNG_SIGNATURE))
     if head.startswith(_PNG_SIGNATURE):
         return read_png(path)
     if head.startswith(_JPEG_SIGNATURE):
-        return read_jpeg(path)
+        img = read_jpeg(path)
+        return CmykImage(img) if img.ndim == 3 and img.shape[2] == 4 else img
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
-def pil_uint8(img: np.ndarray) -> np.ndarray:
+def pil_uint8(img):
     """The 8-bit image PIL works with for a decoded PNG: 16-bit gray opens
     as mode I;16 and converts to 8 bits by clipping at 255; 16-bit colour
-    opens as 8-bit RGB(A) from each sample's high byte."""
-    if img.dtype == np.uint8:
+    opens as 8-bit RGB(A) from each sample's high byte. 8-bit images and
+    `CmykImage`s come back as they are."""
+    if isinstance(img, CmykImage) or img.dtype == np.uint8:
         return img
     if img.ndim == 2:
         return np.minimum(img, 255).astype(np.uint8)
     return (img >> 8).astype(np.uint8)
 
 
-def read_rgb(path) -> np.ndarray:
-    """(h, w, 3) uint8, as PIL's `Image.open(path).convert("RGB")`: gray is
-    replicated, gray+alpha and RGBA drop alpha (no compositing); a PNG or a
-    JPEG."""
-    img = pil_uint8(read_image(path))
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def pil_rgb(img) -> np.ndarray:
+    """PIL's `convert("RGB")` of an 8-bit image: gray is replicated,
+    gray+alpha and RGBA drop alpha (no compositing), and CMYK becomes
+    Pillow's cmyk2rgb: R = (255 - K) - C (255 - K) / 255, the product
+    rounded as its MULDIV255 rounds it, G and B likewise from M and Y."""
+    if isinstance(img, CmykImage):
+        px = img.pixels.astype(np.int32)
+        nk = 255 - px[..., 3:]
+        return np.clip(nk - _muldiv255(px[..., :3], nk), 0, 255).astype(np.uint8)
+    img = np.asarray(img)
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     if img.shape[-1] == 2:
@@ -239,11 +272,18 @@ def read_rgb(path) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
-def pil_luma_u8(img: np.ndarray) -> np.ndarray:
+def read_rgb(path) -> np.ndarray:
+    """(h, w, 3) uint8, as PIL's `Image.open(path).convert("RGB")`
+    (`pil_rgb`); a PNG or a JPEG."""
+    return pil_rgb(pil_uint8(read_image(path)))
+
+
+def pil_luma_u8(img) -> np.ndarray:
     """PIL's `convert("L")` of an 8-bit image: Pillow's integer ITU-R 601
     luma (R 19595 + G 38470 + B 7471 + 0x8000) >> 16 for RGB(A), the gray
-    channel for gray(+alpha)."""
-    img = pil_uint8(np.asarray(img))
+    channel for gray(+alpha), the luma of `pil_rgb` for CMYK (which is what
+    Pillow gives)."""
+    img = pil_rgb(img) if isinstance(img, CmykImage) else pil_uint8(np.asarray(img))
     if img.ndim == 2:
         return img
     if img.shape[-1] == 2:
@@ -301,9 +341,12 @@ def pil_resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
-def _luma(img: np.ndarray) -> np.ndarray:
+def _luma(img) -> np.ndarray:
     """float32 ITU-R 601 luma as native/canvas.cpp computes it. Gray+alpha
-    and RGBA drop alpha; gray+alpha goes through RGB with R = G = B."""
+    and RGBA drop alpha; gray+alpha goes through RGB with R = G = B, CMYK
+    through `pil_rgb` (the JAX package converts it to RGB first)."""
+    if isinstance(img, CmykImage):
+        img = pil_rgb(img)
     if img.ndim == 2:
         return img.astype(np.float32)
     if img.shape[-1] == 2:
@@ -329,7 +372,7 @@ def _bilinear_taps(n_in: int, n_out: int, scale: np.float32):
     return i0, i1, (s - i0).astype(np.float32)
 
 
-def gray_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+def gray_resize(img, out_h: int, out_w: int) -> np.ndarray:
     """Luma, resized to (out_h, out_w), rounded to uint8."""
     gray = _luma(pil_uint8(img))
     in_h, in_w = gray.shape
@@ -498,8 +541,16 @@ def decode_to_canvas(
         wc = _round_up(int(sizes[:, 1].max()), 8)
     else:
         hc, wc = canvas_hw
-    if (sizes[:, 0] > hc).any() or (sizes[:, 1] > wc).any():
-        raise ValueError(f"resized content {sizes.max(axis=0).tolist()} exceeds the canvas {(hc, wc)}")
+    # Content larger than the canvas sends the whole set down the JAX
+    # package's PIL path: PIL's luma, a BILINEAR resize to sizes rounded
+    # from a float64 scale, and a centre crop to the canvas (`sizes` become
+    # the cropped extents).
+    oversize = bool((sizes[:, 0] > hc).any() or (sizes[:, 1] > wc).any())
+    if oversize:
+        scale64 = [short_size / min(int(h0), int(w0)) for h0, w0 in orig_sizes]
+        scales = np.array(scale64, np.float32)
+        sizes = np.array([(round(int(h0) * s), round(int(w0) * s)) for (h0, w0), s in zip(orig_sizes, scale64)],
+                         np.int32).reshape(-1, 2)
 
     canvases = np.zeros((len(paths), hc, wc), np.uint8)
 
@@ -508,8 +559,16 @@ def decode_to_canvas(
         if raw.shape[:2] != tuple(orig_sizes[i]):
             raise ValueError(f"{paths[i]}: decoded {raw.shape[:2]}, its header says {tuple(orig_sizes[i])}")
         h, w = (int(s) for s in sizes[i])
+        if oversize:
+            img = pil_resize_bilinear(pil_luma_u8(raw), h, w)
+            top, left = max(0, (h - hc) // 2), max(0, (w - wc) // 2)
+            img = img[top : top + min(h, hc), left : left + min(w, wc)]
+            h, w = img.shape
+            sizes[i] = (h, w)
+        else:
+            img = gray_resize(raw, h, w)
         y0, x0 = (hc - h) // 2, (wc - w) // 2
-        canvases[i, y0 : y0 + h, x0 : x0 + w] = gray_resize(raw, h, w)
+        canvases[i, y0 : y0 + h, x0 : x0 + w] = img
 
     with _futures.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
         list(ex.map(place, range(len(paths))))

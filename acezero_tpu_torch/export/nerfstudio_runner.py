@@ -26,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from acezero_tpu_torch.data.images import pil_resize_bilinear, read_image
+from acezero_tpu_torch.data.images import CmykImage, pil_resize_bilinear, read_image
 from acezero_tpu_torch.export.nerf import export_transforms_json
 from acezero_tpu_torch.io.jpeg import write_jpeg
 from acezero_tpu_torch.io.png import image_size, write_png
@@ -61,8 +61,9 @@ def _resized(src: Path, new_w: int, new_h: int) -> np.ndarray:
     """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)` of an 8-bit
     gray or RGB PNG or JPEG."""
     img = read_image(src)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] == 3):
-        raise ValueError(f"{src}: only 8-bit gray or RGB images can be downscaled here, got {img.dtype} {img.shape}")
+    if not isinstance(img, np.ndarray) or img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] == 3):
+        kind = f"{img.mode} {img.shape}" if isinstance(img, CmykImage) else f"{img.dtype} {img.shape}"
+        raise ValueError(f"{src}: only 8-bit gray or RGB images can be downscaled here, got {kind}")
     return pil_resize_bilinear(img, new_h, new_w)
 
 

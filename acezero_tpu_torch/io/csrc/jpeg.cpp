@@ -1,15 +1,23 @@
 // Host JPEG codec with a plain C interface, loaded with ctypes by
 // acezero_tpu_torch/io/jpeg.py and built by acezero_tpu_torch/ops/build.py.
 //
-// The decoder reads Huffman-coded 8-bit JPEG: baseline and extended
-// sequential (SOF0/SOF1) and progressive (SOF2), one or three components,
-// restart intervals, any image size. Its pixels are those of libjpeg-turbo's
-// default decompression: the islow integer IDCT (jidctint.c), fancy
-// upsampling of h2v1 and h2v2 chroma (jdsample.c) and the fixed-point
-// YCbCr->RGB tables (jdcolor.c); the colour space is chosen as libjpeg's
-// default_decompress_parms chooses it. Anything else fails with a message:
-// arithmetic coding, lossless and hierarchical frames, 12-bit samples, four
-// components, other sampling factors, truncated or corrupt data.
+// The decoder reads every 8-bit JPEG that libjpeg-turbo decodes for PIL:
+// Huffman or arithmetic coding (jdarith.c's QM decoder, DAC conditioning),
+// sequential (SOF0/SOF1/SOF9) and progressive (SOF2/SOF10) DCT frames,
+// lossless frames (SOF3: predictors 1-7, point transforms; jdlossls.c,
+// jddiffct.c), one, three or four components, any sampling factors 1-4
+// that are whole fractions of the largest with at most 10 blocks in an
+// interleaved MCU, restart intervals, any image size. Its pixels are those
+// of libjpeg-turbo's default decompression: the islow integer IDCT
+// (jidctint.c), jdsample.c's upsampling (fancy h2v1, h1v2 and h2v2, box
+// replication for other ratios and for lossless samples), the fixed-point
+// YCbCr->RGB tables and YCCK->CMYK (jdcolor.c); the colour space is chosen
+// as libjpeg's default_decompress_parms chooses it, and four components
+// come out as PIL stores them (Adobe's inverted CMYK). What libjpeg-turbo
+// or PIL refuses fails with a message: 12-bit samples, hierarchical frames
+// (SOF5-7, SOF13-15), lossless arithmetic coding (SOF11), a height in a DNL
+// marker, two components, a lossless frame with a colour transform, other
+// sampling factors, truncated or corrupt data.
 //
 // The encoder writes baseline JPEG as libjpeg-turbo's defaults do: the IJG
 // tables scaled by jpeg_set_quality, rgb_ycc_convert, h2v2_downsample (4:2:0)
@@ -282,16 +290,111 @@ struct Reader {
 
 inline int extend(int v, int t) { return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v; }
 
-struct Component {
-  int id = 0, h = 1, v = 1, tq = 0;
-  int bw = 0, bh = 0;    // blocks allocated: the MCU grid's, or the component's own in a one-component frame
-  int cbw = 0, cbh = 0;  // blocks that hold the component's samples
-  int cw = 0, ch = 0;    // samples: libjpeg's downsampled_width and downsampled_height
-  std::vector<int16_t> coef;
-  uint16_t q[64];
-  bool q_latched = false;
-  int dc_tab = 0, ac_tab = 0, pred = 0;
+// ITU T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16,
+// Next_Index_MPS << 8, Switch_MPS << 7, Next_Index_LPS. Entry 113 is the
+// fixed bin of the sign and DC-refinement decisions.
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719, 0x006f081c, 0x0036091e,
+    0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34,
+    0x01b11c36, 0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49,
+    0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0,
+    0x4d1c5258, 0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266, 0x41cf6367,
+    0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// The QM decoder of arithmetic-coded data (jdarith.c's arith_decode). At a
+// marker it feeds zero bytes, as the standard has it: an arithmetic-coded
+// segment may end before its decoder stops reading. pos stays on the
+// marker's last 0xFF.
+struct ArithReader {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read before the first decision
+  bool marker = false;
+
+  int byte() {
+    if (marker) return 0;
+    if (pos >= n) fail("truncated JPEG data");
+    int v = d[pos];
+    if (v != 0xFF) {
+      ++pos;
+      return v;
+    }
+    size_t p = pos + 1;
+    while (p < n && d[p] == 0xFF) ++p;
+    if (p >= n) fail("truncated JPEG data");
+    if (d[p] == 0x00) {
+      pos = p + 1;
+      return 0xFF;
+    }
+    marker = true;
+    pos = p - 1;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = kAritab[sv & 0x7F];
+    int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int64_t qe = e >> 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void restart() {
+    c = a = 0;
+    ct = -16;
+    marker = false;
+  }
 };
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;  // h, v: the frame's factors; 1 x 1 in a one-component frame
+  int sv = 1;            // the factor v as written (a lossless scan's rows per iMCU row)
+  int bw = 0, bh = 0;    // units (8 x 8 blocks, lossless: samples) allocated: the MCU grid's, or the component's own in a one-component frame
+  int cbw = 0, cbh = 0;  // units that hold the component's samples
+  int cw = 0, ch = 0;    // samples: libjpeg's downsampled_width and downsampled_height
+  std::vector<int16_t> coef;     // DCT coefficients, 64 per block
+  std::vector<uint8_t> samples;  // lossless: the samples, bw per row
+  std::vector<int32_t> diff;     // lossless: the current scan's differences
+  uint16_t q[64];
+  bool q_latched = false, scanned = false;
+  int dc_tab = 0, ac_tab = 0, pred = 0, dc_context = 0;
+};
+
+enum class Space { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
 
 struct Decoder {
   const uint8_t* d;
@@ -299,15 +402,25 @@ struct Decoder {
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
+  uint8_t arith_dc_l[16], arith_dc_u[16], arith_ac_k[16];  // DAC conditioning
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
-  bool frame = false, progressive = false, eoi = false;
+  bool frame = false, progressive = false, arith = false, lossless = false, eoi = false;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0;
-  Component comp[3];
+  Component comp[4];
   int eobrun = 0;
+  // one scan
+  int ss = 0, se = 0, ah = 0, al = 0;
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin = 113;
 
-  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
+  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {
+    for (int i = 0; i < 16; ++i) {
+      arith_dc_l[i] = 0;
+      arith_dc_u[i] = 1;
+      arith_ac_k[i] = 5;
+    }
+  }
 
   // the next marker's code, pos after it; fill bytes 0xFF are skipped and so
   // is stray data before the marker (libjpeg warns and skips it too)
@@ -330,40 +443,42 @@ struct Decoder {
     ncomp = s[5];
     if (height == 0) fail("unsupported JPEG: the height is given in a DNL marker");
     if (width == 0) fail("corrupt JPEG data: zero width");
-    if (ncomp == 4) fail("unsupported JPEG: 4 components (CMYK/YCCK)");
-    if (ncomp != 1 && ncomp != 3) fail("unsupported JPEG: %d components", ncomp);
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail("unsupported JPEG: %d components", ncomp);
     if (sl < 6 + 3 * ncomp) fail("corrupt JPEG data: short start-of-frame segment");
-    progressive = m == 0xC2;
+    progressive = m == 0xC2 || m == 0xCA;
+    arith = m >= 0xC9;
+    lossless = m == 0xC3;
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.id = s[6 + 3 * i];
       c.h = s[7 + 3 * i] >> 4;
       c.v = s[7 + 3 * i] & 15;
+      c.sv = c.v;
       c.tq = s[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) fail("corrupt JPEG data: bad component parameters");
     }
-    if (ncomp == 1) {
-      comp[0].h = comp[0].v = 1;  // a single component is coded one block per MCU at any factors
-    } else {
-      const Component &y = comp[0], &cb = comp[1], &cr = comp[2];
-      bool luma_ok = (y.h == 1 && y.v == 1) || (y.h == 2 && y.v == 1) || (y.h == 2 && y.v == 2);
-      if (!luma_ok || cb.h != 1 || cb.v != 1 || cr.h != 1 || cr.v != 1)
-        fail("unsupported JPEG sampling factors %dx%d,%dx%d,%dx%d (read: 1x1, 2x1 or 2x2 luma, 1x1 chroma)", y.h,
-             y.v, cb.h, cb.v, cr.h, cr.v);
-    }
+    if (ncomp == 1) comp[0].h = comp[0].v = 1;  // a single component is coded one unit per MCU at any factors
     hmax = vmax = 1;
     for (int i = 0; i < ncomp; ++i) {
       hmax = std::max(hmax, comp[i].h);
       vmax = std::max(vmax, comp[i].v);
     }
-    mcux = ceil_div(width, 8 * hmax);
-    mcuy = ceil_div(height, 8 * vmax);
+    for (int i = 0; i < ncomp; ++i) {  // jdsample.c upsamples by whole ratios only
+      if (hmax % comp[i].h || vmax % comp[i].v) {
+        std::string f;
+        for (int j = 0; j < ncomp; ++j) f += (j ? "," : "") + std::to_string(comp[j].h) + "x" + std::to_string(comp[j].v);
+        fail("unsupported JPEG sampling factors %s (each a whole fraction of the largest is read)", f.c_str());
+      }
+    }
+    const int unit = lossless ? 1 : 8;
+    mcux = ceil_div(width, unit * hmax);
+    mcuy = ceil_div(height, unit * vmax);
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.cw = ceil_div(width * c.h, hmax);
       c.ch = ceil_div(height * c.v, vmax);
-      c.cbw = ceil_div(c.cw, 8);
-      c.cbh = ceil_div(c.ch, 8);
+      c.cbw = ceil_div(c.cw, unit);
+      c.cbh = ceil_div(c.ch, unit);
       c.bw = ncomp == 1 ? c.cbw : mcux * c.h;
       c.bh = ncomp == 1 ? c.cbh : mcuy * c.v;
     }
@@ -397,6 +512,21 @@ struct Decoder {
     }
   }
 
+  // jdmarker.c's get_dac: DC tables 0-15 take L and U, AC tables (16-31) K
+  void read_dac(const uint8_t* s, int sl) {
+    for (int p = 0; p + 1 < sl; p += 2) {
+      int t = s[p], val = s[p + 1];
+      if (t >= 32) fail("corrupt JPEG data: bad DAC table %d", t);
+      if (t >= 16) {
+        arith_ac_k[t - 16] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_l[t] = static_cast<uint8_t>(val & 15);
+        arith_dc_u[t] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_l[t] > arith_dc_u[t]) fail("corrupt JPEG data: bad DAC value 0x%02X", val);
+      }
+    }
+  }
+
   void parse(bool header_only) {
     if (n < 3 || d[0] != 0xFF || d[1] != 0xD8) fail("not a JPEG file");
     pos = 2;
@@ -418,27 +548,34 @@ struct Decoder {
         case 0xC0:
         case 0xC1:
         case 0xC2:
+        case 0xC3:
+        case 0xC9:
+        case 0xCA:
           read_sof(m, s, sl);
           if (header_only) return;
-          for (int i = 0; i < ncomp; ++i) comp[i].coef.assign(static_cast<size_t>(comp[i].bw) * comp[i].bh * 64, 0);
+          for (int i = 0; i < ncomp; ++i) {
+            size_t units = static_cast<size_t>(comp[i].bw) * comp[i].bh;
+            if (lossless) {
+              comp[i].samples.assign(units, 0);
+            } else {
+              comp[i].coef.assign(units * 64, 0);
+            }
+          }
           break;
-        case 0xC3:
-          fail("unsupported JPEG: lossless coding (SOF3, marker 0xFFC3)");
+        case 0xCB:
+          fail("unsupported JPEG: lossless arithmetic coding (SOF11, marker 0xFFCB)");
         case 0xC5:
         case 0xC6:
         case 0xC7:
-          fail("unsupported JPEG: hierarchical coding (SOF%d, marker 0xFF%02X)", m - 0xC0, m);
-        case 0xC9:
-        case 0xCA:
-        case 0xCB:
         case 0xCD:
         case 0xCE:
         case 0xCF:
-          fail("unsupported JPEG: arithmetic coding (SOF%d, marker 0xFF%02X)", m - 0xC0, m);
-        case 0xCC:
-          fail("unsupported JPEG: arithmetic coding (DAC, marker 0xFFCC)");
+          fail("unsupported JPEG: hierarchical coding (SOF%d, marker 0xFF%02X)", m - 0xC0, m);
         case 0xC4:
           read_dht(s, sl);
+          break;
+        case 0xCC:
+          read_dac(s, sl);
           break;
         case 0xDB:
           read_dqt(s, sl);
@@ -476,7 +613,8 @@ struct Decoder {
   void scan(const uint8_t* s, int sl) {
     int ns = sl >= 1 ? s[0] : 0;
     if (ns < 1 || ns > ncomp || sl < 4 + 2 * ns) fail("corrupt JPEG data: bad start-of-scan segment");
-    Component* sc[3];
+    Component* sc[4];
+    const int ntab = arith ? 16 : 4;
     for (int i = 0; i < ns; ++i) {
       int cid = s[1 + 2 * i], t = s[2 + 2 * i];
       Component* c = nullptr;
@@ -487,11 +625,16 @@ struct Decoder {
         if (sc[j] == c) fail("corrupt JPEG data: a component twice in one scan");
       c->dc_tab = t >> 4;
       c->ac_tab = t & 15;
-      if (c->dc_tab > 3 || c->ac_tab > 3) fail("corrupt JPEG data: bad Huffman table number");
+      if (c->dc_tab >= ntab || c->ac_tab >= ntab) fail("corrupt JPEG data: bad entropy table number");
       sc[i] = c;
     }
-    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
-    if (progressive) {
+    ss = s[1 + 2 * ns];
+    se = s[2 + 2 * ns];
+    ah = s[3 + 2 * ns] >> 4;
+    al = s[3 + 2 * ns] & 15;
+    if (lossless) {  // Ss is the predictor, Al the point transform (jdlossls.c)
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) fail("corrupt JPEG data: bad lossless scan parameters");
+    } else if (progressive) {
       bool dc_scan = ss == 0;
       if ((dc_scan && se != 0) || (!dc_scan && (se < ss || se > 63 || ns != 1)) || al > 13 || ah > 13)
         fail("corrupt JPEG data: bad progressive scan parameters");
@@ -500,21 +643,33 @@ struct Decoder {
       se = 63;
       ah = al = 0;  // libjpeg warns about other values in a sequential scan and ignores them
     }
+    int units_in_mcu = 0;
     for (int i = 0; i < ns; ++i) {
       Component* c = sc[i];
-      if (!c->q_latched) {  // libjpeg latches a component's table at its first scan
+      units_in_mcu += ns == 1 ? 1 : c->h * c->v;
+      if (!lossless && !c->q_latched) {  // libjpeg latches a component's table at its first scan
         if (!qt_defined[c->tq]) fail("corrupt JPEG data: quantization table %d is not defined", c->tq);
         memcpy(c->q, qt[c->tq], sizeof c->q);
         c->q_latched = true;
       }
-      bool need_dc = ss == 0 && ah == 0, need_ac = se > 0;
-      if ((need_dc && !dc[c->dc_tab].defined) || (need_ac && !ac[c->ac_tab].defined))
-        fail("corrupt JPEG data: a scan uses an undefined Huffman table");
+      if (!arith) {
+        bool need_dc = (ss == 0 && ah == 0) || lossless, need_ac = se > 0 && !lossless;
+        if ((need_dc && !dc[c->dc_tab].defined) || (need_ac && !ac[c->ac_tab].defined))
+          fail("corrupt JPEG data: a scan uses an undefined Huffman table");
+      }
+      if (lossless) {
+        if (c->scanned) fail("corrupt JPEG data: component %d in two lossless scans", c->id);
+        c->diff.assign(static_cast<size_t>(c->bw) * c->bh, 0);
+      }
       c->pred = 0;
+      c->dc_context = 0;
     }
+    if (units_in_mcu > 10)
+      fail("unsupported JPEG: sampling factors too large for an interleaved scan (%d blocks in an MCU, at most 10)",
+           units_in_mcu);
     eobrun = 0;
+    if (arith) reset_arith_stats(sc, ns);
 
-    Reader r{d, n, pos};
     int ux, uy;
     if (ns == 1) {
       ux = sc[0]->cbw;
@@ -523,36 +678,60 @@ struct Decoder {
       ux = mcux;
       uy = mcuy;
     }
+    if (lossless && restart_interval % ux)
+      fail("corrupt JPEG data: restart interval %d is not a whole number of rows of %d", restart_interval, ux);
+    std::vector<int> reset_rows{0};  // lossless: MCU rows where the predictor starts over
+    Reader r{d, n, pos};
+    ArithReader ar{d, n, pos};
     int togo = restart_interval, next_rst = 0;
     for (int my = 0; my < uy; ++my) {
       for (int mx = 0; mx < ux; ++mx) {
         if (restart_interval) {
           if (togo == 0) {
-            read_restart(r, next_rst);
+            if (arith) {
+              arith_restart(ar, next_rst);
+              reset_arith_stats(sc, ns);
+            } else {
+              read_restart(r, next_rst);
+            }
             next_rst = (next_rst + 1) & 7;
-            for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+            for (int i = 0; i < ns; ++i) {
+              sc[i]->pred = 0;
+              sc[i]->dc_context = 0;
+            }
             eobrun = 0;
             togo = restart_interval;
+            if (lossless) reset_rows.push_back(my);
           }
           --togo;
         }
         if (ns == 1) {
-          Component* c = sc[0];
-          block(r, *c, &c->coef[(static_cast<size_t>(my) * c->bw + mx) * 64], ss, se, ah, al);
+          unit(r, ar, *sc[0], static_cast<size_t>(my) * sc[0]->bw + mx);
         } else {
           for (int i = 0; i < ns; ++i) {
             Component* c = sc[i];
             for (int by = 0; by < c->v; ++by)
-              for (int bx = 0; bx < c->h; ++bx) {
-                size_t b = static_cast<size_t>(my * c->v + by) * c->bw + (mx * c->h + bx);
-                block(r, *c, &c->coef[b * 64], ss, se, ah, al);
-              }
+              for (int bx = 0; bx < c->h; ++bx)
+                unit(r, ar, *c, static_cast<size_t>(my * c->v + by) * c->bw + (mx * c->h + bx));
           }
         }
       }
     }
-    pos = r.pos;  // on the next marker, or on the padding before it
+    pos = arith ? ar.pos : r.pos;  // on the next marker, or on the padding before it
+    if (lossless) {
+      for (int i = 0; i < ns; ++i) undifference(*sc[i], ns == 1, reset_rows);
+    }
     ++scans;
+  }
+
+  void unit(Reader& r, ArithReader& ar, Component& c, size_t u) {
+    if (lossless) {
+      c.diff[u] = lossless_diff(r, c);
+    } else if (arith) {
+      arith_block(ar, c, &c.coef[u * 64]);
+    } else {
+      block(r, c, &c.coef[u * 64]);
+    }
   }
 
   void read_restart(Reader& r, int expect) {
@@ -565,7 +744,9 @@ struct Decoder {
     r.pos = p + 2;
   }
 
-  void block(Reader& r, Component& c, int16_t* blk, int ss, int se, int ah, int al) {
+  // ---- Huffman-coded DCT blocks
+
+  void block(Reader& r, Component& c, int16_t* blk) {
     if (!progressive) {
       int t = r.decode(dc[c.dc_tab]);
       if (t > 16) fail("corrupt JPEG data: bad DC difference");
@@ -656,35 +837,271 @@ struct Decoder {
     }
   }
 
+  // ---- arithmetic-coded DCT blocks (jdarith.c)
+
+  // libjpeg's start_pass and process_restart: the statistics of the scan's
+  // tables start over
+  void reset_arith_stats(Component* const* sc, int ns) {
+    for (int i = 0; i < ns; ++i) {
+      if (!progressive || (ss == 0 && ah == 0)) memset(dc_stats[sc[i]->dc_tab], 0, 64);
+      if (!progressive || ss != 0) memset(ac_stats[sc[i]->ac_tab], 0, 256);
+    }
+    fixed_bin = 113;
+  }
+
+  // past the RSTn marker that ends an interval: the decoder may have met it
+  // already, or the interval's last bytes (unread) come before it
+  void arith_restart(ArithReader& ar, int expect) {
+    size_t p = ar.pos;
+    if (!ar.marker) {
+      for (;;) {
+        while (p < n && d[p] != 0xFF) ++p;
+        while (p + 1 < n && d[p + 1] == 0xFF) ++p;
+        if (p + 1 >= n) fail("truncated JPEG data");
+        if (d[p + 1] != 0x00) break;
+        p += 2;
+      }
+    }
+    if (d[p + 1] != 0xD0 + expect) fail("corrupt JPEG data: expected RST%d, found marker 0xFF%02X", expect, d[p + 1]);
+    ar.pos = p + 2;
+    ar.restart();
+  }
+
+  // Figures F.19 and F.21-F.24 from bin st: a nonzero DC difference's sign
+  // and magnitude, as jdarith.c decodes them; *sign_out for the context
+  int arith_dc_diff(ArithReader& ar, Component& c, uint8_t* base, int& sign_out) {
+    uint8_t* st = base + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+      return 0;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m != 0) {
+      st = base + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG data: arithmetic-coded DC magnitude overflow");
+        ++st;
+      }
+    }
+    const int tbl = c.dc_tab;
+    if (m < static_cast<int>((1L << arith_dc_l[tbl]) >> 1))
+      c.dc_context = 0;
+    else if (m > static_cast<int>((1L << arith_dc_u[tbl]) >> 1))
+      c.dc_context = 12 + sign * 4;
+    else
+      c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    sign_out = sign;
+    return sign ? -v : v;
+  }
+
+  // an AC coefficient's sign and magnitude (k: its zigzag index)
+  int arith_ac_value(ArithReader& ar, uint8_t* base, uint8_t* st, int k, int tbl) {
+    int sign = ar.decode(&fixed_bin);
+    st += 2;
+    int m = ar.decode(st);
+    if (m != 0 && ar.decode(st)) {
+      m <<= 1;
+      st = base + (k <= arith_ac_k[tbl] ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG data: arithmetic-coded AC magnitude overflow");
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  void arith_block(ArithReader& ar, Component& c, int16_t* blk) {
+    int sign = 0;
+    if (!progressive) {
+      int v = arith_dc_diff(ar, c, dc_stats[c.dc_tab], sign);
+      c.pred = (c.pred + v) & 0xFFFF;
+      blk[0] = static_cast<int16_t>(c.pred);
+      arith_ac_first(ar, c, blk, 1, 63, 0);
+      return;
+    }
+    if (ss == 0) {
+      if (ah == 0) {
+        c.pred += arith_dc_diff(ar, c, dc_stats[c.dc_tab], sign);
+        blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.pred) << al);
+      } else if (ar.decode(&fixed_bin)) {
+        blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      }
+      return;
+    }
+    if (ah == 0) {
+      arith_ac_first(ar, c, blk, ss, se, al);
+      return;
+    }
+    // AC refinement (decode_mcu_AC_refine)
+    uint8_t* base = ac_stats[c.ac_tab];
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = static_cast<int16_t>(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) fail("corrupt JPEG data: arithmetic-coded spectral overflow");
+      }
+    }
+  }
+
+  // Figure F.20: the AC coefficients k0..k1 of a sequential block or a
+  // first progressive pass (decode_mcu, decode_mcu_AC_first)
+  void arith_ac_first(ArithReader& ar, Component& c, int16_t* blk, int k0, int k1, int shift) {
+    uint8_t* base = ac_stats[c.ac_tab];
+    for (int k = k0; k <= k1; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > k1) fail("corrupt JPEG data: arithmetic-coded spectral overflow");
+      }
+      int v = arith_ac_value(ar, base, st, k, c.ac_tab);
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << shift);
+    }
+  }
+
+  // ---- lossless (jdlhuff.c, jdlossls.c, jddiffct.c)
+
+  int lossless_diff(Reader& r, Component& c) {
+    int s = r.decode(dc[c.dc_tab]);
+    if (s > 16) fail("corrupt JPEG data: bad lossless difference");
+    if (s == 16) return 32768;
+    return s ? extend(r.get(s), s) : 0;
+  }
+
+  // The scan's differences to samples. The predictor starts over at the
+  // scan's first row and at each restart. libjpeg-turbo undifferences an
+  // iMCU row (in a scan of one component, sv sample rows) after decoding
+  // all of it, so a restart within one starts the predictor over at the
+  // iMCU row's first row; this does the same.
+  void undifference(Component& c, bool single, const std::vector<int>& reset_mcu_rows) {
+    std::vector<char> first_row(c.ch + 1, 0);
+    for (int m : reset_mcu_rows) {
+      int row = single ? m / c.sv * c.sv : m * c.v;
+      if (row < c.ch) first_row[row] = 1;
+    }
+    const int psv = ss, initial = 1 << (8 - al - 1);
+    std::vector<int> prev(c.cw), cur(c.cw);
+    for (int y = 0; y < c.ch; ++y) {
+      const int32_t* df = &c.diff[static_cast<size_t>(y) * c.bw];
+      if (first_row[y]) {
+        int ra = (df[0] + initial) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < c.cw; ++x) cur[x] = ra = (df[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0], rc;
+        int ra = (df[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < c.cw; ++x) {
+          rc = rb;
+          rb = prev[x];
+          int p;
+          switch (psv) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (df[x] + p) & 0xFFFF;
+        }
+      }
+      uint8_t* o = &c.samples[static_cast<size_t>(y) * c.bw];
+      for (int x = 0; x < c.cw; ++x) o[x] = static_cast<uint8_t>(cur[x] << al);
+      std::swap(prev, cur);
+    }
+    std::vector<int32_t>().swap(c.diff);
+    c.scanned = true;
+  }
+
   // ---- samples
+
+  // libjpeg's default_decompress_parms
+  Space color_space() const {
+    if (ncomp == 1) return Space::kGray;
+    if (ncomp == 4) return adobe && adobe_transform != 0 ? Space::kYCCK : Space::kCMYK;
+    if (jfif) return Space::kYCbCr;
+    if (adobe) return adobe_transform == 0 ? Space::kRGB : Space::kYCbCr;
+    if (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B') return Space::kRGB;
+    return lossless ? Space::kRGB : Space::kYCbCr;  // lossless files without a marker are taken for RGB
+  }
+
+  enum class Up { kFull, kH2V1, kH1V2, kH2V2, kInt };
 
   void output(uint8_t* out) {
     if (!eoi) fail("truncated JPEG data (no end-of-image marker)");
-    std::vector<uint8_t> plane[3];
+    const Space space = color_space();
+    if (lossless && (space == Space::kYCbCr || space == Space::kYCCK))
+      fail("unsupported JPEG: lossless coding with a colour transform (%s)", space == Space::kYCCK ? "YCCK" : "YCbCr");
+    std::vector<uint8_t> plane[4];
+    size_t stride[4];
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
+      if (lossless) {
+        if (!c.scanned) fail("corrupt JPEG data: component %d is in no scan", c.id);
+        stride[i] = static_cast<size_t>(c.bw);
+        plane[i].swap(c.samples);
+        continue;
+      }
       if (!c.q_latched) fail("corrupt JPEG data: component %d is in no scan", c.id);
-      size_t stride = static_cast<size_t>(c.bw) * 8;
-      plane[i].assign(stride * c.cbh * 8, 0);
+      stride[i] = static_cast<size_t>(c.bw) * 8;
+      plane[i].assign(stride[i] * c.cbh * 8, 0);
       for (int by = 0; by < c.cbh; ++by)
         for (int bx = 0; bx < c.cbw; ++bx)
           idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.q,
-                     &plane[i][by * 8 * stride + bx * 8], static_cast<int>(stride));
+                     &plane[i][by * 8 * stride[i] + bx * 8], static_cast<int>(stride[i]));
       std::vector<int16_t>().swap(c.coef);
     }
     if (ncomp == 1) {
-      size_t stride = static_cast<size_t>(comp[0].bw) * 8;
-      for (int y = 0; y < height; ++y) memcpy(out + static_cast<size_t>(y) * width, &plane[0][y * stride], width);
+      for (int y = 0; y < height; ++y) memcpy(out + static_cast<size_t>(y) * width, &plane[0][y * stride[0]], width);
       return;
     }
-    // libjpeg's default_decompress_parms
-    bool rgb;
-    if (jfif) {
-      rgb = false;
-    } else if (adobe) {
-      rgb = adobe_transform == 0;
-    } else {
-      rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    // jdsample.c's choice for each component; fancy upsampling needs the
+    // DCT (lossless samples are replicated) and, across, a downsampled
+    // width over 2
+    Up up[4];
+    std::vector<uint8_t> buf[4];
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      const bool fancy = !lossless, wide = fancy && c.cw > 2;
+      if (c.h == hmax && c.v == vmax)
+        up[i] = Up::kFull;
+      else if (c.h * 2 == hmax && c.v == vmax && wide)
+        up[i] = Up::kH2V1;
+      else if (c.h == hmax && c.v * 2 == vmax && fancy)
+        up[i] = Up::kH1V2;
+      else if (c.h * 2 == hmax && c.v * 2 == vmax && wide)
+        up[i] = Up::kH2V2;
+      else
+        up[i] = Up::kInt;
+      buf[i].assign(static_cast<size_t>(c.cw) * (hmax / c.h) + 2, 0);
     }
     int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
     constexpr int SB = 16;
@@ -695,55 +1112,87 @@ struct Decoder {
       cr_g[i] = static_cast<int32_t>(-fix(0.71414, SB) * x);
       cb_g[i] = static_cast<int32_t>(-fix(0.34414, SB) * x + (1 << (SB - 1)));
     }
-    size_t s0 = static_cast<size_t>(comp[0].bw) * 8, s1 = static_cast<size_t>(comp[1].bw) * 8,
-           s2 = static_cast<size_t>(comp[2].bw) * 8;
-    const int cw = comp[1].cw, ch = comp[1].ch;
-    const bool fancy = cw > 2;  // jdsample.c: fancy upsampling needs a downsampled width over 2
-    std::vector<uint8_t> up1(2 * static_cast<size_t>(cw) + 2), up2(2 * static_cast<size_t>(cw) + 2);
+    const uint8_t* row[4];
     for (int y = 0; y < height; ++y) {
-      const uint8_t* yr = &plane[0][y * s0];
-      const uint8_t *cb, *cr;
-      if (hmax == 1 && vmax == 1) {
-        cb = &plane[1][y * s1];
-        cr = &plane[2][y * s2];
-      } else if (vmax == 1) {
-        upsample_h2v1(&plane[1][y * s1], cw, fancy, up1.data());
-        upsample_h2v1(&plane[2][y * s2], cw, fancy, up2.data());
-        cb = up1.data();
-        cr = up2.data();
-      } else {
-        int row = y >> 1;
-        int far = (y & 1) ? std::min(row + 1, ch - 1) : std::max(row - 1, 0);
-        upsample_h2v2(&plane[1][row * s1], &plane[1][far * s1], cw, fancy, up1.data());
-        upsample_h2v2(&plane[2][row * s2], &plane[2][far * s2], cw, fancy, up2.data());
-        cb = up1.data();
-        cr = up2.data();
-      }
-      uint8_t* o = out + static_cast<size_t>(y) * width * 3;
-      if (rgb) {
+      for (int i = 0; i < ncomp; ++i) row[i] = upsampled_row(i, y, up[i], plane[i].data(), stride[i], buf[i].data());
+      if (space == Space::kRGB) {
+        uint8_t* o = out + static_cast<size_t>(y) * width * 3;
         for (int x = 0; x < width; ++x) {
-          o[3 * x] = yr[x];
-          o[3 * x + 1] = cb[x];
-          o[3 * x + 2] = cr[x];
+          o[3 * x] = row[0][x];
+          o[3 * x + 1] = row[1][x];
+          o[3 * x + 2] = row[2][x];
         }
-      } else {
+      } else if (space == Space::kYCbCr) {
+        uint8_t* o = out + static_cast<size_t>(y) * width * 3;
         for (int x = 0; x < width; ++x) {
-          int yy = yr[x], b = cb[x], rr = cr[x];
+          int yy = row[0][x], b = row[1][x], rr = row[2][x];
           o[3 * x] = clamp255(yy + cr_r[rr]);
           o[3 * x + 1] = clamp255(yy + ((cb_g[b] + cr_g[rr]) >> SB));
           o[3 * x + 2] = clamp255(yy + cb_b[b]);
+        }
+      } else {
+        // PIL reads four components as Adobe's inverted CMYK ("CMYK;I"):
+        // CMYK samples come out as 255 minus themselves, and YCCK's
+        // (jdcolor.c's ycck_cmyk_convert, C = 255 - R and so on) as R, G,
+        // B and 255 - K
+        uint8_t* o = out + static_cast<size_t>(y) * width * 4;
+        const bool ycck = space == Space::kYCCK;
+        for (int x = 0; x < width; ++x) {
+          if (ycck) {
+            int yy = row[0][x], b = row[1][x], rr = row[2][x];
+            o[4 * x] = clamp255(yy + cr_r[rr]);
+            o[4 * x + 1] = clamp255(yy + ((cb_g[b] + cr_g[rr]) >> SB));
+            o[4 * x + 2] = clamp255(yy + cb_b[b]);
+          } else {
+            o[4 * x] = static_cast<uint8_t>(255 - row[0][x]);
+            o[4 * x + 1] = static_cast<uint8_t>(255 - row[1][x]);
+            o[4 * x + 2] = static_cast<uint8_t>(255 - row[2][x]);
+          }
+          o[4 * x + 3] = static_cast<uint8_t>(255 - row[3][x]);
         }
       }
     }
   }
 
-  // jdsample.c's h2v1_fancy_upsample (3/4 nearer + 1/4 further, biases 1 and
-  // 2), or h2v1_upsample (replication)
-  static void upsample_h2v1(const uint8_t* in, int cw, bool fancy, uint8_t* out) {
-    if (!fancy) {
-      for (int i = 0; i < cw; ++i) out[2 * i] = out[2 * i + 1] = in[i];
-      return;
+  // row y of component i at the full resolution (at least `width` samples)
+  const uint8_t* upsampled_row(int i, int y, Up up, const uint8_t* p, size_t stride, uint8_t* out) const {
+    const Component& c = comp[i];
+    const int cw = c.cw, ch = c.ch;
+    switch (up) {
+      case Up::kFull:
+        return p + y * stride;
+      case Up::kH2V1:
+        upsample_h2v1(p + y * stride, cw, out);
+        return out;
+      case Up::kH1V2: {
+        // h1v2_fancy_upsample: 3/4 nearer row + 1/4 further, biases 1 and 2
+        int near = y >> 1, odd = y & 1;
+        int far = odd ? std::min(near + 1, ch - 1) : std::max(near - 1, 0);
+        const uint8_t *a = p + near * stride, *b = p + far * stride;
+        for (int x = 0; x < cw; ++x) out[x] = static_cast<uint8_t>((a[x] * 3 + b[x] + 1 + odd) >> 2);
+        return out;
+      }
+      case Up::kH2V2: {
+        int near = y >> 1;
+        int far = (y & 1) ? std::min(near + 1, ch - 1) : std::max(near - 1, 0);
+        upsample_h2v2(p + near * stride, p + far * stride, cw, out);
+        return out;
+      }
+      default: {
+        // int_upsample (h2v1_upsample and h2v2_upsample among them):
+        // each sample replicated hmax / h times across, vmax / v down
+        const int fh = hmax / c.h, fv = vmax / c.v;
+        const uint8_t* src = p + (y / fv) * stride;
+        for (int x = 0; x < cw; ++x)
+          for (int k = 0; k < fh; ++k) out[x * fh + k] = src[x];
+        return out;
+      }
     }
+  }
+
+  // jdsample.c's h2v1_fancy_upsample: 3/4 nearer + 1/4 further, biases 1
+  // and 2
+  static void upsample_h2v1(const uint8_t* in, int cw, uint8_t* out) {
     out[0] = in[0];
     out[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
     for (int i = 1; i < cw - 1; ++i) {
@@ -757,12 +1206,8 @@ struct Decoder {
   }
 
   // h2v2_fancy_upsample: column sums 3 * nearer row + further row, then the
-  // h2v1 weights on the sums (biases 8 and 7), or h2v2_upsample (replication)
-  static void upsample_h2v2(const uint8_t* near, const uint8_t* far, int cw, bool fancy, uint8_t* out) {
-    if (!fancy) {
-      for (int i = 0; i < cw; ++i) out[2 * i] = out[2 * i + 1] = near[i];
-      return;
-    }
+  // h2v1 weights on the sums (biases 8 and 7)
+  static void upsample_h2v2(const uint8_t* near, const uint8_t* far, int cw, uint8_t* out) {
     int last = near[0] * 3 + far[0], cur = last, next = near[1] * 3 + far[1];
     out[0] = static_cast<uint8_t>((cur * 4 + 8) >> 4);
     out[1] = static_cast<uint8_t>((cur * 3 + next + 7) >> 4);

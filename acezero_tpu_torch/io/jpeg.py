@@ -1,14 +1,14 @@
 """JPEG files without an image library: io/csrc/jpeg.cpp through ctypes.
 
 `read_jpeg(path)` gives the pixels of `np.asarray(PIL.Image.open(path))`
-for a Huffman-coded 8-bit JPEG (baseline, extended sequential or
-progressive; gray or three components; restart intervals; any size): (h, w)
-uint8 for one component, (h, w, 3) RGB for three. It reproduces
-libjpeg-turbo's default decompression, which PIL runs: the islow IDCT,
-fancy chroma upsampling and the fixed-point YCbCr->RGB tables. Arithmetic
-coding, lossless and hierarchical files, 12-bit samples, CMYK/YCCK, other
-sampling factors and truncated or corrupt data raise ValueError naming the
-file.
+for every 8-bit JPEG that PIL decodes: Huffman or arithmetic coding;
+baseline, extended sequential, progressive or lossless frames; gray, three
+or four components at any sampling factors libjpeg takes; restart
+intervals; any size. It reproduces libjpeg-turbo's default decompression,
+which PIL runs: the islow IDCT, jdsample.c's upsampling and the
+fixed-point colour tables. What PIL refuses (12-bit samples, hierarchical
+frames, lossless arithmetic coding, a DNL height, two components) and
+truncated or corrupt data raise ValueError naming the file.
 
 `write_jpeg(path, img, quality=75, subsampling="4:2:0")` writes baseline
 JPEG byte for byte as PIL's `Image.fromarray(img).save(path, quality=...)`
@@ -48,8 +48,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def jpeg_shape(data: np.ndarray, path) -> tuple[int, ...]:
-    """(h, w) or (h, w, 3) of the JPEG held in `data` (uint8), from its
-    start-of-frame marker."""
+    """(h, w), (h, w, 3) or (h, w, 4) of the JPEG held in `data` (uint8),
+    from its start-of-frame marker."""
     hwc = np.zeros(3, np.int32)
     err = ctypes.create_string_buffer(_ERR_BYTES)
     if _lib().acz_jpeg_header(data.ctypes.data, data.size, hwc.ctypes.data, err, _ERR_BYTES):
@@ -59,7 +59,11 @@ def jpeg_shape(data: np.ndarray, path) -> tuple[int, ...]:
 
 
 def read_jpeg(path) -> np.ndarray:
-    """Decode a JPEG file: (h, w) uint8 gray or (h, w, 3) uint8 RGB."""
+    """Decode a JPEG file as PIL opens it: (h, w) uint8 for mode L (one
+    component), (h, w, 3) uint8 for mode RGB (three, YCbCr or RGB), (h, w, 4)
+    uint8 for mode CMYK (four, CMYK or YCCK; Adobe's inverted convention
+    undone, as PIL's "CMYK;I" does). data/images.py::read_image keeps the
+    last apart from RGBA."""
     data = np.fromfile(path, np.uint8)
     out = np.empty(jpeg_shape(data, path), np.uint8)
     err = ctypes.create_string_buffer(_ERR_BYTES)

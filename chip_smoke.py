@@ -83,9 +83,15 @@ Phases:
               error and its JPEG downscale, and Regressor.forward against
               the export's predict_coords bit for bit; counts zeroed just
               before each main-path call and read just after
- 12 jpeg      the host JPEG codec: the committed fixtures decode to PIL's
-              arrays (sha256, tests/data/jpeg/pil_digests.json), write_jpeg
-              writes PIL's bytes for the JPEG_ROUNDTRIP frames, then
+ 12 jpeg      the host JPEG codec: the committed fixtures (every kind the
+              decoder reads: baseline, progressive, any sampling factors,
+              CMYK and YCCK, arithmetic coding, lossless) decode to PIL's
+              arrays (sha256, tests/data/jpeg/pil_digests.json), read_rgb
+              gives PIL's convert("RGB") of the four-component ones,
+              decode_to_canvas over all of them gives the JAX package's
+              canvases at the default canvas and at one smaller than the
+              content (the crop), write_jpeg writes PIL's bytes for the
+              JPEG_ROUNDTRIP frames, then
               JPEG_PHOTO_FRAMES frames of JPEG_PHOTO_HW: read_jpeg's ms and
               MP/s, threads against one thread, decode_to_canvas at a 480
               short side with each of JPEG_WORKERS (each in a fresh
@@ -404,7 +410,9 @@ PRETRAIN_UPDATE_TOL = 0.15
 # written by write_jpeg at BARE_JPEG (quality, subsampling); phase jpeg
 # decodes the committed fixtures (tests/data/jpeg, scripts/make_jpeg_fixtures.py)
 # and writes the JPEG_ROUNDTRIP frames (jpeg_roundtrip_frame), each decode
-# held to PIL's by sha256 (pil_digests.json), then times decode_to_canvas on
+# held to PIL's by sha256 (pil_digests.json), as are read_rgb of the
+# four-component fixtures and decode_to_canvas over all of them (to the JAX
+# package's canvas_digest), then times decode_to_canvas on
 # JPEG_PHOTO_FRAMES frames of JPEG_PHOTO_HW (Mip-NeRF 360's full size, the
 # chesslike frames enlarged by pil_resize_bilinear) at JPEG_PHOTO_QUALITY,
 # with each of JPEG_WORKERS
@@ -854,6 +862,16 @@ def tinted(np, img):
 def array_digest(arr) -> str:
     """sha256 of a decoded image's bytes (C order)."""
     return hashlib.sha256(arr.tobytes()).hexdigest()
+
+
+def canvas_digest(out) -> str:
+    """sha256 of decode_to_canvas's result: the canvases, then the sizes,
+    the original sizes (int32) and the scale factors (float32)."""
+    h = hashlib.sha256()
+    for arr, dtype in ((out.canvases, "uint8"), (out.sizes, "int32"), (out.orig_sizes, "int32"),
+                       (out.scale_factors, "float32")):
+        h.update(arr.astype(dtype).tobytes())
+    return h.hexdigest()
 
 
 def photo_decode_child(root: Path, pattern: str, workers: int) -> dict:
@@ -1886,6 +1904,25 @@ def main(argv=None) -> int:
                 fixtures[name] = list(got.shape) == want["shape"] and array_digest(got) == want["sha256"]
             rec["fixtures_equal_to_pil"] = f"{sum(fixtures.values())}/{len(fixtures)}"
             require(all(fixtures.values()), f"fixtures not decoded to PIL's bits: {[n for n, v in fixtures.items() if not v]}")
+            # the four-component fixtures through read_rgb: PIL's convert("RGB")
+            rgb = {name: array_digest(read_rgb(JPEG_FIXTURES / name)) == want for name, want in sorted(digests["rgb"].items())}
+            rec["read_rgb_equal_to_pil"] = f"{sum(rgb.values())}/{len(rgb)}"
+            require(rgb and all(rgb.values()), f"read_rgb not PIL's convert('RGB'): {rgb}")
+            # decode_to_canvas over every fixture, all kinds in one glob: the
+            # JAX package's canvases at the default canvas and at one smaller
+            # than the content (the centre crop)
+            t0 = time.perf_counter()
+            fixture_glob = sorted(str(p_) for p_ in JPEG_FIXTURES.glob("*.jpg"))
+            canvas = []
+            for entry in digests["canvas"]:
+                hw = None if entry["canvas_hw"] is None else tuple(entry["canvas_hw"])
+                out = decode_to_canvas(fixture_glob, short_size=entry["short_size"], canvas_hw=hw, num_workers=4)
+                canvas.append({"short_size": entry["short_size"], "canvas_hw": entry["canvas_hw"],
+                               "shape": list(out.canvases.shape), "equal_to_jax": canvas_digest(out) == entry["sha256"]})
+            rec["canvas"] = canvas
+            rec["canvas_seconds"] = time.perf_counter() - t0
+            require(len(canvas) == 2 and all(c["equal_to_jax"] for c in canvas),
+                    f"decode_to_canvas over the fixtures is not the JAX package's: {canvas}")
 
             # (b) write_jpeg writes PIL's bytes, and they decode to PIL's arrays
             roundtrip = []

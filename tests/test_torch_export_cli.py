@@ -46,8 +46,10 @@ from acezero_tpu_torch.cli import render_final_sweep_cli
 from acezero_tpu_torch.data.images import read_png
 from acezero_tpu_torch.export.cameras import export_camera_meshes as t_cameras
 from acezero_tpu_torch.export.nerf import export_transforms_json as t_transforms
+from acezero_tpu_torch.io import jpeg as tjpeg
 from acezero_tpu_torch.io.jpeg import read_jpeg
 from acezero_tpu_torch.io.ply import read_ply_points
+from acezero_tpu_torch.ops import build
 from acezero_tpu_torch.viz import overlay as tov
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -177,6 +179,7 @@ def test_runner_downscales_a_wide_png_to_pils_pixels(mode, stub_bin, tmp_path):
 
 def test_runner_missing_cli_and_jpeg_downscale(pose_scene, tmp_path, monkeypatch):
     scene, pose_file, _ = pose_scene
+    build.build_host(tjpeg.SOURCE)  # the codec builds with the c++ on PATH, which the test empties
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     with pytest.raises(RuntimeError, match="ns-train"):
         trunner.run_benchmark(pose_file, str(scene / "img_*.png"), tmp_path / "o")

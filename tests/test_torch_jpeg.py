@@ -6,7 +6,18 @@ package on the CPU.
   L and RGB, subsampling 4:4:4, 4:2:2 and 4:2:0, quality 50-100,
   progressive, optimized Huffman tables and restart markers, at sizes on
   and off the MCU grid;
+- and over the files PIL reads but cannot write, made by
+  scripts/make_jpeg_fixtures.py's writer: any sampling factors libjpeg
+  takes (4:4:0, 4:1:1, chroma above 1 x 1), CMYK and YCCK, arithmetic
+  coding (sequential and progressive, DAC conditioning) and lossless
+  frames (predictors 1-7, point transforms), with restart markers; where
+  PIL refuses a file (12-bit samples, hierarchical frames, a DNL height,
+  lossless arithmetic coding, too many blocks in an MCU) the port raises
+  a ValueError naming the file;
 - unsupported or broken files raise ValueError naming the file;
+- `read_rgb`, `pil_luma_u8` and decode_to_canvas give PIL's and the JAX
+  package's results on four-component files, and decode_to_canvas with a
+  canvas smaller than the content gives the JAX package's crop;
 - `write_jpeg` gives PIL's bytes;
 - decode_to_canvas, read_rgb and the point cloud's frame colours give the
   JAX package's (PIL's) results on JPEG and PNG globs, holding at most
@@ -14,7 +25,8 @@ package on the CPU.
 - read_png reads palette, 1/2/4-bit gray and Adam7-interlaced PNGs as PIL
   gives them to the JAX package;
 - the committed fixtures' digests (tests/data/jpeg/pil_digests.json, which
-  the card checks) are PIL's, and the port decodes to them;
+  the card checks) are PIL's and the JAX package's, and the port decodes to
+  them;
 - the slice as a whole: the reconstruction CLI's mini loop
   (tests/test_torch_pipeline.py) on a glob of JPEG frames, against the JAX
   pipeline on the same files.
@@ -46,7 +58,9 @@ from acezero_tpu_torch.ops import build
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tests"))
+sys.path.insert(0, str(ROOT / "scripts"))
 import chip_smoke  # noqa: E402
+import make_jpeg_fixtures as fixtures  # noqa: E402
 from synthetic import render_room_scene  # noqa: E402
 from test_torch_pipeline import JAX_ONLY, MINI, MINI_FLAGS, MINI_OVERRIDES, N, RATE_BAND  # noqa: E402
 from test_torch_trainer import one_torch_thread  # noqa: E402,F401  (autouse: torch on one thread)
@@ -108,12 +122,16 @@ def _patched(src: Path, dst: Path, find: bytes, offset: int, value: int) -> Path
 
 
 @pytest.mark.parametrize("case,match", [
-    ("cmyk", "4 components"), ("truncated", "truncated"), ("not_an_image", "neither a PNG nor a JPEG"),
-    ("arithmetic", "arithmetic coding"), ("lossless", "lossless"), ("12bit", "12-bit"),
-    ("sampling", "sampling factors"), ("corrupt", "corrupt JPEG data"),
+    ("cmyk", None), ("truncated", "truncated"), ("not_an_image", "neither a PNG nor a JPEG"),
+    ("arithmetic", None), ("lossless", None), ("12bit", "12-bit"),
+    ("sampling", None), ("corrupt", "corrupt JPEG data"),
 ])
 def test_unsupported_or_broken_files_raise(case, match, tmp_path):
+    """Broken files and 12-bit samples raise (PIL refuses 12 bits too); CMYK,
+    arithmetic coding, lossless frames and luma 1 x 2 sampling, refused once,
+    decode to PIL's pixels (match None)."""
     rgb = _save(tmp_path / "rgb.jpg", 37, 53, "RGB", "4:2:0", seed=1, quality=75)
+    ycc = fixtures.ycbcr(np.asarray(_image(37, 53, "RGB", 3)))
     if case == "cmyk":
         p = tmp_path / "cmyk.jpg"
         _image(16, 16, "RGB", 2).convert("CMYK").save(p)
@@ -124,17 +142,26 @@ def test_unsupported_or_broken_files_raise(case, match, tmp_path):
         p = tmp_path / "x.jpg"
         p.write_bytes(b"GIF89a not an image at all")
     elif case == "arithmetic":
-        p = _patched(rgb, tmp_path / "a.jpg", b"\xff\xc0", 1, 0xC9)
+        p = tmp_path / "a.jpg"
+        p.write_bytes(fixtures.encode(ycc, sampling=[(2, 2), (1, 1), (1, 1)], coding="arithmetic"))
     elif case == "lossless":
-        p = _patched(rgb, tmp_path / "l.jpg", b"\xff\xc0", 1, 0xC3)
+        p = tmp_path / "l.jpg"
+        p.write_bytes(fixtures.encode(np.asarray(_image(37, 53, "L", 4)), lossless=1, jfif=False))
     elif case == "12bit":
         p = _patched(rgb, tmp_path / "p.jpg", b"\xff\xc0", 4, 12)
     elif case == "sampling":
-        p = _patched(rgb, tmp_path / "s.jpg", b"\xff\xc0", 11, 0x12)  # luma 1x2 (4:4:0)
+        p = tmp_path / "s.jpg"
+        p.write_bytes(fixtures.encode(ycc, sampling=[(1, 2), (1, 1), (1, 1)]))  # luma 1x2 (4:4:0)
     else:  # entropy-coded data cut short before the end-of-image marker
         data = rgb.read_bytes()
         p = tmp_path / "c.jpg"
         p.write_bytes(data[: data.index(b"\xff\xda") + 40] + b"\xff\xd9")
+    if match is None:
+        assert np.array_equal(tjpeg.read_jpeg(p), np.asarray(Image.open(p)))
+        return
+    if case == "12bit":
+        with pytest.raises(OSError):  # UnidentifiedImageError
+            Image.open(p)
     with pytest.raises(ValueError, match=match) as exc:
         timg.read_image(p)
     assert str(p) in str(exc.value)
@@ -145,6 +172,197 @@ def test_header_gives_the_shape_without_decoding(tmp_path):
     data = np.fromfile(p, np.uint8)
     assert tjpeg.jpeg_shape(data, p) == (37, 53, 3)
     assert timg.image_size(p) == (53, 37)
+
+
+# ------------------------------------------------------------- what PIL reads and cannot write
+
+WRITER_SIZES = [(1, 1), (2, 3), (7, 9), (17, 33), (37, 53)]
+SAMPLINGS = {  # name: sampling factors libjpeg-turbo upsamples
+    "440": [(1, 2), (1, 1), (1, 1)],
+    "411": [(4, 1), (1, 1), (1, 1)],
+    "chroma2x1_1x2": [(2, 2), (2, 1), (1, 2)],
+    "luma_upsampled": [(1, 1), (2, 2), (1, 1)],
+    "310": [(3, 1), (1, 1), (1, 1)],
+    "420": [(2, 2), (1, 1), (1, 1)],
+    "y4x2": [(4, 2), (1, 1), (1, 1)],
+    "y1x4_cb1x2": [(1, 4), (1, 2), (1, 1)],
+}
+
+
+def _both(path):
+    """PIL's array and the port's, or the exceptions they raise."""
+    try:
+        want = np.asarray(Image.open(path))
+    except OSError as e:  # UnidentifiedImageError is an OSError
+        want = e
+    try:
+        got = tjpeg.read_jpeg(path)
+    except ValueError as e:
+        got = e
+    return want, got
+
+
+def _assert_pils(path):
+    want, got = _both(path)
+    assert isinstance(want, np.ndarray), want
+    assert isinstance(got, np.ndarray), got
+    assert got.dtype == np.uint8 and got.shape == want.shape and np.array_equal(got, want)
+
+
+def _assert_both_raise(path, match=None):
+    want, got = _both(path)
+    assert isinstance(want, OSError), f"PIL decodes {path}"
+    assert isinstance(got, ValueError) and str(path) in str(got), got
+    if match is not None:
+        assert match in str(got), got
+
+
+def _write(tmp_path, name, data):
+    p = tmp_path / name
+    p.write_bytes(data)
+    return p
+
+
+@pytest.mark.parametrize("coding", ["huffman", "huffman_restart", "scans", "arithmetic", "progressive"])
+@pytest.mark.parametrize("sampling", sorted(SAMPLINGS), ids=str)
+def test_sampling_factors_match_pil(sampling, coding, tmp_path):
+    kw = {"huffman": {}, "huffman_restart": {"restart": 2}, "scans": {"separate_scans": True, "restart": 1},
+          "arithmetic": {"coding": "arithmetic", "restart": 3},
+          "progressive": {"coding": "arithmetic", "progressive": True}}[coding]
+    for i, (h, w) in enumerate(WRITER_SIZES):
+        ycc = fixtures.ycbcr(np.asarray(_image(h, w, "RGB", seed=i)))
+        _assert_pils(_write(tmp_path, f"s{i}.jpg", fixtures.encode(ycc, sampling=SAMPLINGS[sampling], **kw)))
+
+
+@pytest.mark.parametrize("sampling,scans,match", [
+    ([(3, 1), (2, 1), (1, 1)], False, "sampling factors 3x1,2x1,1x1"),  # not whole ratios
+    ([(4, 4), (1, 1), (1, 1)], False, "too large for an interleaved scan"),  # 18 blocks in an MCU
+    ([(3, 3), (1, 1), (1, 1)], False, "too large for an interleaved scan"),
+], ids=["fractional", "4x4", "3x3"])
+def test_sampling_factors_pil_refuses_raise(sampling, scans, match, tmp_path):
+    ycc = fixtures.ycbcr(np.asarray(_image(17, 33, "RGB", seed=5)))
+    _assert_both_raise(_write(tmp_path, "r.jpg", fixtures.encode(ycc, sampling=sampling, separate_scans=scans)), match)
+    # in scans of one component each, 4 x 4 luma is read
+    if sampling[0] == (4, 4):
+        _assert_pils(_write(tmp_path, "ok.jpg", fixtures.encode(ycc, sampling=sampling, separate_scans=True)))
+
+
+FOUR = {  # name: (Adobe transform or None, sampling)
+    "cmyk": (None, None),
+    "cmyk_adobe0": (0, None),
+    "ycck_adobe2": (2, [(2, 2), (1, 1), (1, 1), (2, 2)]),
+    "ycck_adobe1": (1, [(1, 2), (1, 1), (1, 1), (1, 2)]),  # any transform but 0 is YCCK to libjpeg
+}
+
+
+@pytest.mark.parametrize("coding", ["huffman", "arithmetic", "progressive", "lossless"])
+@pytest.mark.parametrize("kind", sorted(FOUR))
+def test_four_components_match_pil(kind, coding, tmp_path):
+    adobe, sampling = FOUR[kind]
+    kw = {"huffman": {"restart": 2}, "arithmetic": {"coding": "arithmetic"},
+          "progressive": {"coding": "arithmetic", "progressive": True}, "lossless": {"lossless": 5}}[coding]
+    for i, (h, w) in enumerate(WRITER_SIZES):
+        rgb = np.asarray(_image(h, w, "RGB", seed=i))
+        planes = fixtures.ycck(rgb) if kind.startswith("ycck") else 255 - np.asarray(Image.fromarray(rgb).convert("CMYK"))
+        p = _write(tmp_path, f"f{i}.jpg", fixtures.encode(planes, sampling=sampling, jfif=False, adobe=adobe, **kw))
+        if coding == "lossless" and kind.startswith("ycck"):
+            _assert_both_raise(p, "lossless coding with a colour transform")  # libjpeg-turbo converts no colours there
+            continue
+        _assert_pils(p)
+        im = Image.open(p)
+        img = timg.read_image(p)
+        assert isinstance(img, timg.CmykImage) and img.mode == im.mode == "CMYK" and timg.pil_uint8(img) is img
+        assert np.array_equal(timg.read_rgb(p), np.asarray(im.convert("RGB")))
+        assert np.array_equal(timg.pil_luma_u8(img), np.asarray(im.convert("L")))
+
+
+def test_cmyk_to_rgb_is_pillows_at_every_value():
+    c, k = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    px = np.stack([c, (c * 7) % 256, 255 - c, k], -1).astype(np.uint8)
+    im = Image.frombytes("CMYK", (256, 256), px.tobytes())
+    cmyk = timg.CmykImage(np.asarray(im))
+    assert np.array_equal(timg.pil_rgb(cmyk), np.asarray(im.convert("RGB")))
+    assert np.array_equal(timg.pil_luma_u8(cmyk), np.asarray(im.convert("L")))
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("progressive", [False, True], ids=["sequential", "progressive"])
+def test_arithmetic_coding_matches_pil(mode, progressive, tmp_path):
+    dacs = [None, {"dc": {0: (2, 5), 1: (0, 0)}, "ac": {0: 2, 1: 40}}, {"dc": {0: (0, 15)}, "ac": {0: 63}}]
+    for i, (h, w) in enumerate(WRITER_SIZES):
+        img = np.asarray(_image(h, w, mode, seed=i))
+        planes = img if mode == "L" else fixtures.ycbcr(img)
+        for j, dac in enumerate(dacs):
+            data = fixtures.encode(planes, coding="arithmetic", progressive=progressive, dac=dac, restart=j,
+                                   quality=(60, 90, 100)[j], sampling=None if mode == "L" else [(2, 2), (1, 1), (1, 1)])
+            _assert_pils(_write(tmp_path, f"a{i}_{j}.jpg", data))
+
+
+@pytest.mark.parametrize("point_transform", [0, 1, 3])
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_matches_pil(predictor, point_transform, tmp_path):
+    for i, (h, w) in enumerate(WRITER_SIZES):
+        rgb = np.asarray(_image(h, w, "RGB", seed=i))
+        gray = np.asarray(_image(h, w, "L", seed=i))
+        cases = [
+            (gray, {"restart": 2 * w}),
+            # no marker: RGB, as libjpeg-turbo takes it; a restart every MCU row
+            (rgb, {"restart": -(-w // 2), "sampling": [(2, 2), (1, 1), (1, 2)]}),
+            (rgb, {"ids": [82, 71, 66], "separate_scans": True}),
+            # one component, two rows an iMCU row, a restart every row: the
+            # predictor starts over at iMCU rows, as libjpeg-turbo does it
+            (gray, {"sampling": [(1, 2)], "restart": w}),
+        ]
+        for j, (planes, kw) in enumerate(cases):
+            data = fixtures.encode(planes, lossless=predictor, point_transform=point_transform, jfif=False, **kw)
+            _assert_pils(_write(tmp_path, f"l{i}_{j}.jpg", data))
+
+
+def _sof_patched(data: bytes, find: bytes, offset: int, value) -> bytes:
+    out = bytearray(data)
+    i = data.index(find) + offset
+    out[i : i + len(value)] = value
+    return bytes(out)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("12bit", None), ("12bit_lossless", None),
+    ("sof5", "hierarchical"), ("sof6", "hierarchical"), ("sof7", "hierarchical"),
+    ("sof13", "hierarchical"), ("sof14", "hierarchical"), ("sof15", "hierarchical"),
+    ("dnl", "DNL"), ("sof11", "lossless arithmetic coding"), ("two_components", "2 components"),
+    ("lossless_ycbcr", "lossless coding with a colour transform"), ("lossless_restart", "restart interval"),
+])
+def test_files_pil_refuses_raise(case, match, tmp_path):
+    """Each file PIL refuses (at open, or at load) the port refuses with a
+    ValueError naming it: 12-bit samples (PIL's error at open), hierarchical
+    frames (SOF5-7, SOF13-15), a height given in a DNL marker, lossless
+    arithmetic coding (SOF11, which libjpeg-turbo does not decode), two
+    components, a lossless file with a colour transform, a lossless restart
+    interval that is not a whole number of rows."""
+    ycc = fixtures.ycbcr(np.asarray(_image(17, 33, "RGB", seed=7)))
+    gray = np.asarray(_image(17, 33, "L", seed=7))
+    seq = fixtures.encode(ycc)  # SOF1
+    arith = fixtures.encode(ycc, coding="arithmetic")  # SOF9
+    lossless = fixtures.encode(gray, lossless=1, jfif=False)  # SOF3
+    data = {
+        "12bit": _sof_patched(seq, b"\xff\xc1", 4, b"\x0c"),
+        "12bit_lossless": _sof_patched(lossless, b"\xff\xc3", 4, b"\x0c"),
+        "sof5": _sof_patched(seq, b"\xff\xc1", 1, b"\xc5"),
+        "sof6": _sof_patched(seq, b"\xff\xc1", 1, b"\xc6"),
+        "sof7": _sof_patched(lossless, b"\xff\xc3", 1, b"\xc7"),
+        "sof13": _sof_patched(arith, b"\xff\xc9", 1, b"\xcd"),
+        "sof14": _sof_patched(arith, b"\xff\xc9", 1, b"\xce"),
+        "sof15": _sof_patched(arith, b"\xff\xc9", 1, b"\xcf"),
+        "sof11": _sof_patched(lossless, b"\xff\xc3", 1, b"\xcb"),
+        "two_components": fixtures.encode(ycc[..., :2]),
+        "lossless_ycbcr": fixtures.encode(np.asarray(_image(17, 33, "RGB", seed=7)), lossless=1),  # JFIF: YCbCr
+        "lossless_restart": fixtures.encode(gray, lossless=1, jfif=False, restart=20),
+    }
+    if case == "dnl":  # height 0 in the frame header, the lines in a DNL segment after the scan
+        d = _sof_patched(seq, b"\xff\xc1", 5, b"\x00\x00")
+        data[case] = d[: d.rindex(b"\xff\xd9")] + b"\xff\xdc\x00\x04\x00\x11\xff\xd9"
+    p = _write(tmp_path, f"{case}.jpg", data[case])
+    _assert_both_raise(p, match or "12-bit")
 
 
 # ------------------------------------------------------------- encoder
@@ -187,12 +405,31 @@ def test_fixture_digests_are_pils_and_the_ports(name):
 
 def test_fixtures_are_small_and_cover_the_matrix():
     files = sorted(chip_smoke.JPEG_FIXTURES.glob("*.jpg"))
-    assert len(files) <= 12 and sum(f.stat().st_size for f in files) < 100_000
-    assert {f.name for f in files} == set(DIGESTS["files"])
+    assert len(files) <= 22 and sum(f.stat().st_size for f in files) < 100_000
+    assert {f.name for f in files} == set(DIGESTS["files"]) == {Path(p).name for p in fixtures.fixture_paths()}
     assert all(max(Image.open(f).size) <= 64 for f in files)
     names = " ".join(f.name for f in files)
-    for kind in ("gray", "444", "422", "420", "progressive", "optimize", "restart"):
+    for kind in ("gray", "444", "422", "420", "progressive", "optimize", "restart", "440", "411", "chroma2x1_1x2",
+                 "cmyk", "ycck", "arith", "lossless"):
         assert kind in names
+    assert set(DIGESTS["rgb"]) == {"cmyk_q90.jpg", "ycck_adobe2.jpg"}
+
+
+def test_fixture_rgb_digests_are_pils_and_the_ports():
+    for name, want in DIGESTS["rgb"].items():
+        path = chip_smoke.JPEG_FIXTURES / name
+        assert chip_smoke.array_digest(np.asarray(Image.open(path).convert("RGB"))) == want
+        assert chip_smoke.array_digest(timg.read_rgb(path)) == want
+
+
+@pytest.mark.parametrize("entry", DIGESTS["canvas"], ids=lambda e: f"short{e['short_size']}_{e['canvas_hw']}")
+def test_fixture_canvas_digests_are_jaxs_and_the_ports(entry):
+    """decode_to_canvas over every fixture (all kinds mixed), at the default
+    canvas and at one smaller than the content (the crop)."""
+    short, hw = entry["short_size"], None if entry["canvas_hw"] is None else tuple(entry["canvas_hw"])
+    assert fixtures.jax_canvases(short, hw) == entry["sha256"]
+    got = timg.decode_to_canvas(fixtures.fixture_paths(), short_size=short, canvas_hw=hw, num_workers=2)
+    assert chip_smoke.canvas_digest(got) == entry["sha256"]
 
 
 @pytest.mark.parametrize("entry", DIGESTS["roundtrip"], ids=lambda e: f"frame{e['frame']}")
@@ -336,6 +573,108 @@ def test_read_rgb_matches_pils_convert(tmp_path):
     for i, (mode, sub) in enumerate(MODES):
         p = _save(tmp_path / f"r{i}.jpg", 37, 53, mode, sub, seed=i, quality=85)
         assert np.array_equal(timg.read_rgb(p), np.asarray(Image.open(p).convert("RGB")))
+
+
+def _four_component_glob(tmp_path, short):
+    """CMYK and YCCK files of every coding, and gray and RGB ones, short side
+    `short`."""
+    paths = []
+    for i, ((kind, coding), (h, w)) in enumerate(zip(
+            [(k, c) for k in sorted(FOUR) for c in ("huffman", "arithmetic", "progressive")],
+            [(short, short + 5 * j) if j % 2 else (short + 4 * j, short) for j in range(12)])):
+        adobe, sampling = FOUR[kind]
+        rgb = np.asarray(_image(h, w, "RGB", seed=60 + i))
+        planes = fixtures.ycck(rgb) if kind.startswith("ycck") else 255 - np.asarray(Image.fromarray(rgb).convert("CMYK"))
+        kw = {"arithmetic": {"coding": "arithmetic"}, "progressive": {"coding": "arithmetic", "progressive": True}}
+        paths.append(_write(tmp_path, f"k{i:02d}.jpg", fixtures.encode(planes, sampling=sampling, jfif=False, adobe=adobe,
+                                                                        **kw.get(coding, {}))))
+    paths.append(_save(tmp_path / "g.jpg", short, short + 9, "L", None, seed=70, quality=85))
+    paths.append(_save(tmp_path / "c.jpg", short + 11, short, "RGB", "4:2:0", seed=71, quality=85))
+    _image(short, short + 2, "RGB", seed=72).convert("CMYK").save(tmp_path / "pil_cmyk.jpg")
+    paths.append(tmp_path / "pil_cmyk.jpg")
+    return sorted(str(p) for p in paths)
+
+
+@pytest.mark.parametrize("short,resized", [(40, False), (24, True)])
+def test_four_component_canvases_match_jax(short, resized, tmp_path):
+    paths = _four_component_glob(tmp_path, 40)
+    got = timg.decode_to_canvas(paths, short_size=short, num_workers=3)
+    want = jimg.decode_to_canvas(paths, short_size=short, num_workers=3)
+    for k in ("sizes", "orig_sizes", "scale_factors"):
+        assert np.array_equal(getattr(got, k), getattr(want, k)), k
+    assert got.canvases.shape == want.canvases.shape
+    diff = np.abs(got.canvases.astype(int) - want.canvases.astype(int))
+    # as test_canvas_matches_jax_on_a_mixed_glob: bit-equal unresized, a
+    # shrink rounds the area average in float64 here, float32 there
+    assert diff.max() == 0 if not resized else diff.max() <= 1
+    for p in paths:
+        assert np.array_equal(timg.read_rgb(p), np.asarray(Image.open(p).convert("RGB"))), p
+
+
+def _oversize_glob(tmp_path):
+    """PNGs of every mode the JAX package's PIL path converts (RGB, L, RGBA,
+    LA, P, 16-bit gray and RGB) and JPEGs of every kind, sizes whose resized
+    extents round differently in float32 and float64 among them."""
+    paths = []
+    sizes = [(37, 53), (53, 37), (45, 45), (29, 61), (61, 31), (40, 71), (33, 33)]
+    for i, (mode, (h, w)) in enumerate(zip(("RGB", "L", "RGBA", "LA", "P"), sizes)):
+        im = _image(h, w, "RGB", seed=80 + i)
+        im = im.quantize(64) if mode == "P" else im.convert(mode)
+        im.save(tmp_path / f"p{i}.png")
+        paths.append(tmp_path / f"p{i}.png")
+    rng = np.random.default_rng(0)
+    _png(tmp_path / "g16.png", rng.integers(0, 400, (41, 57, 1)).astype(np.uint16), 16, 0)
+    _png(tmp_path / "c16.png", rng.integers(0, 65536, (39, 44, 3)).astype(np.uint16), 16, 2)
+    paths += [tmp_path / "g16.png", tmp_path / "c16.png"]
+    for i, (h, w) in enumerate(sizes):
+        rgb = np.asarray(_image(h, w, "RGB", seed=90 + i))
+        data = [fixtures.encode(fixtures.ycbcr(rgb), sampling=[(1, 2), (1, 1), (1, 1)]),
+                fixtures.encode(fixtures.ycck(rgb), jfif=False, adobe=2, coding="arithmetic"),
+                fixtures.encode(255 - np.asarray(Image.fromarray(rgb).convert("CMYK")), jfif=False),
+                fixtures.encode(rgb[..., 1], lossless=3, jfif=False),
+                fixtures.encode(fixtures.ycbcr(rgb), coding="arithmetic", progressive=True)][i % 5]
+        paths.append(_write(tmp_path, f"j{i}.jpg", data))
+        paths.append(_save(tmp_path / f"q{i}.jpg", h, w, "RGB", "4:2:0", seed=95 + i, quality=80))
+    return sorted(str(p) for p in paths)
+
+
+@pytest.mark.parametrize("short,canvas_hw", [(48, (64, 64)), (37, (40, 40)), (33, (32, 40)), (48, (24, 24))],
+                         ids=["one_too_wide", "some", "every", "every_both_sides"])
+def test_oversize_canvas_crop_matches_jax(short, canvas_hw, tmp_path):
+    """An explicit canvas smaller than one resized image, then than every
+    one: the whole glob takes the JAX package's PIL path (luma, a BILINEAR
+    resize to float64-rounded sizes, a centre crop that rewrites `sizes`)."""
+    paths = _oversize_glob(tmp_path)
+    got = timg.decode_to_canvas(paths, short_size=short, canvas_hw=canvas_hw, num_workers=3)
+    want = jimg.decode_to_canvas(paths, short_size=short, canvas_hw=canvas_hw, num_workers=3)
+    for k in ("canvases", "sizes", "orig_sizes", "scale_factors"):
+        assert getattr(got, k).dtype == getattr(want, k).dtype, k
+        assert np.array_equal(getattr(got, k), getattr(want, k)), k
+    assert (got.sizes <= np.asarray(canvas_hw)).all() and got.canvases.shape[1:] == canvas_hw
+
+
+def test_oversize_sizes_round_in_float64(tmp_path):
+    """The PIL path's sizes are Python's round of the float64 product, as
+    the JAX package's: a 6 x 27 image at short side 7 is 31.5000...04 wide,
+    32 pixels, where the float32 product of the default path rounds to 31."""
+    paths = []
+    for i, (h, w) in enumerate([(6, 27), (51, 6), (41, 205), (3, 5)]):
+        _image(h, w, "RGB", seed=i).save(tmp_path / f"r{i}.png")
+        paths.append(str(tmp_path / f"r{i}.png"))
+    assert round(27 * (7 / 6)) == 32 and int(np.round(np.float32(27) * (np.float32(7) / np.float32(6)))) == 31
+    for short in (7, 5, 41):
+        want = jimg.decode_to_canvas(paths, short_size=short, canvas_hw=(8, 16), num_workers=2)
+        got = timg.decode_to_canvas(paths, short_size=short, canvas_hw=(8, 16), num_workers=2)
+        for k in ("canvases", "sizes", "orig_sizes", "scale_factors"):
+            assert np.array_equal(getattr(got, k), getattr(want, k)), (short, k)
+
+
+def test_runner_refuses_a_cmyk_source(tmp_path):
+    from acezero_tpu_torch.export import nerfstudio_runner
+
+    _image(20, 30, "RGB", seed=1).convert("CMYK").save(tmp_path / "k.jpg")
+    with pytest.raises(ValueError, match="only 8-bit gray or RGB.*CMYK"):
+        nerfstudio_runner._resized(tmp_path / "k.jpg", 15, 10)
 
 
 def test_frame_colors_match_jax_on_jpeg_frames(tmp_path):
