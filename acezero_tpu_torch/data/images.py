@@ -11,16 +11,19 @@ travels with it. Anything else raises ValueError naming the file.
 
 Each image is turned to ITU-R 601 luma, resized so its short side matches
 `short_size`, and centred on a canvas shared by the whole set, rounded up
-to a multiple of 8 — the same arithmetic as native/canvas.cpp: an area
-average when shrinking, bilinear when enlarging, float32 luma, +0.5 and
-truncation to uint8. A 16-bit image first becomes what PIL makes of it
-(`pil_uint8`). `decode_to_canvas` reads the sizes from the files' headers,
-fixes the canvas, then decodes, resizes and places each image in one
-worker task, so at most `num_workers` decoded images are held at once
-(the JAX package decodes all of them before placing any). When an explicit
-canvas is smaller than any resized image, every image takes the JAX
-package's PIL path instead: `pil_luma_u8`, `pil_resize_bilinear` and a
-centre crop.
+to a multiple of 8, by the host canvas pass (data/csrc/canvas.cpp through
+data/native.py): float32 luma, an area average when shrinking, bilinear
+when enlarging, +0.5 and truncation to uint8 — the JAX package's canvases
+bit for bit. The pass takes what `canvas_input` makes of the decoded
+image, which is what the JAX package hands to its own: 16-bit images as
+PIL makes them 8-bit (`pil_uint8`), RGB for gray+alpha, RGBA and CMYK.
+`gray_resize` is the pass's plain numpy version, for the tests.
+`decode_to_canvas` reads the sizes from the files' headers, fixes the
+canvas, then decodes, resizes and places each image in one worker task, so
+at most `num_workers` decoded images are held at once (the JAX package
+decodes all of them before placing any). When an explicit canvas is
+smaller than any resized image, every image takes the JAX package's PIL
+path instead: `pil_luma_u8`, `pil_resize_bilinear` and a centre crop.
 
 The colour paths that the JAX package runs through PIL are reproduced
 exactly: `read_rgb` and `pil_rgb` (`convert("RGB")`, CMYK included),
@@ -52,6 +55,7 @@ from pathlib import Path
 
 import numpy as np
 
+from acezero_tpu_torch.data import native
 from acezero_tpu_torch.io.jpeg import read_jpeg
 from acezero_tpu_torch.io.png import image_size
 
@@ -295,11 +299,11 @@ def pil_luma_u8(img) -> np.ndarray:
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point coefficients for 8-bit images
 
 
-def _pil_bilinear_coeffs(n_in: int, n_out: int):
-    """Pillow's `precompute_coeffs` and `normalize_coeffs_8bpc` for the
-    triangle filter: (first tap (n_out,), integer weights (n_out, ksize)).
-    The support widens by the shrink factor; weights are normalised in
-    double, summed tap by tap as Pillow does, then rounded to fixed point."""
+def _pil_bilinear_weights(n_in: int, n_out: int):
+    """Pillow's `precompute_coeffs` for the triangle filter: (first tap
+    (n_out,), float64 weights (n_out, ksize)). The support widens by the
+    shrink factor; the weights are normalised in double, their sum taken tap
+    by tap as Pillow does."""
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale
@@ -313,27 +317,40 @@ def _pil_bilinear_coeffs(n_in: int, n_out: int):
     ww = np.zeros(n_out)
     for x in range(ksize):
         ww = ww + w[:, x]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
-    k = np.where(w < 0, np.trunc(-0.5 + w * (1 << _PRECISION_BITS)), np.trunc(0.5 + w * (1 << _PRECISION_BITS)))
-    return xmin, k.astype(np.int64)
+    return xmin, np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
 
 
 def _pil_resample_axis0(img: np.ndarray, n_out: int) -> np.ndarray:
-    xmin, k = _pil_bilinear_coeffs(img.shape[0], n_out)
-    src = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None, :], img.shape[0] - 1)  # zero weight past the end
+    """One pass of Pillow's resample along axis 0: for 8-bit samples the
+    weights in fixed point (`normalize_coeffs_8bpc`) and an integer sum,
+    for 16-bit gray (mode I;16) a double sum rounded half up."""
+    xmin, w = _pil_bilinear_weights(img.shape[0], n_out)
+    src = np.minimum(xmin[:, None] + np.arange(w.shape[1])[None, :], img.shape[0] - 1)  # zero weight past the end
+    shape = (-1,) + (1,) * (img.ndim - 1)
+    if img.dtype == np.uint16:
+        acc = np.zeros((n_out,) + img.shape[1:])
+        for x in range(w.shape[1]):
+            acc += img[src[:, x]] * w[:, x].reshape(shape)
+        v = np.floor(acc + 0.5).astype(np.int64)
+        return (np.minimum(v >> 8, 255) << 8 | (v & 255)).astype(np.uint16)  # each byte clipped, as Pillow stores it
+    k = np.where(w < 0, np.trunc(-0.5 + w * (1 << _PRECISION_BITS)), np.trunc(0.5 + w * (1 << _PRECISION_BITS)))
+    k = k.astype(np.int64)
     acc = np.full((n_out,) + img.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
     for x in range(k.shape[1]):
-        acc += img[src[:, x]].astype(np.int64) * k[:, x].reshape((-1,) + (1,) * (img.ndim - 1))
+        acc += img[src[:, x]].astype(np.int64) * k[:, x].reshape(shape)
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def pil_resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """PIL's `Image.fromarray(img).resize((out_w, out_h), BILINEAR)` of an
-    8-bit (h, w) or (h, w, c) image: a horizontal pass into 8-bit rows, then
-    a vertical pass, each a triangle filter with fixed-point weights; the
-    same size is a copy."""
-    h, w = img.shape[:2]
-    out = np.asarray(img, np.uint8)
+    8-bit (h, w) or (h, w, c) image, each channel on its own, or of a 16-bit
+    gray (h, w) image (mode I;16): a horizontal pass into rows of the
+    image's type, then a vertical pass, each a triangle filter; the same
+    size is a copy."""
+    out = np.asarray(img)
+    if not (out.dtype == np.uint8 or (out.dtype == np.uint16 and out.ndim == 2)):
+        raise ValueError(f"pil_resize_bilinear takes uint8 images or uint16 (h, w), got {out.dtype} {out.shape}")
+    h, w = out.shape[:2]
     if w != out_w:
         out = _pil_resample_axis0(out.swapaxes(0, 1), out_w).swapaxes(0, 1)
     if h != out_h:
@@ -341,57 +358,121 @@ def pil_resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
-def _luma(img) -> np.ndarray:
-    """float32 ITU-R 601 luma as native/canvas.cpp computes it. Gray+alpha
-    and RGBA drop alpha; gray+alpha goes through RGB with R = G = B, CMYK
-    through `pil_rgb` (the JAX package converts it to RGB first)."""
-    if isinstance(img, CmykImage):
-        img = pil_rgb(img)
+def pil_premultiply(img: np.ndarray) -> np.ndarray:
+    """PIL's `convert("RGBa")` of RGBA and `convert("La")` of gray+alpha
+    (h, w, 2): each colour sample times alpha / 255, rounded as Pillow's
+    MULDIV255 rounds it; alpha as it is."""
+    a = img[..., -1:].astype(np.int32)
+    return np.concatenate([_muldiv255(img[..., :-1].astype(np.int32), a).astype(np.uint8), img[..., -1:]], -1)
+
+
+def pil_unpremultiply(img: np.ndarray) -> np.ndarray:
+    """PIL's `convert("RGBA")` of RGBa and `convert("LA")` of La: each colour
+    sample times 255 / alpha, truncated and clipped at 255; where alpha is 0
+    or 255 the sample stays as it is."""
+    a = img[..., -1:].astype(np.int32)
+    c = img[..., :-1].astype(np.int32)
+    c = np.where((a == 0) | (a == 255), c, np.minimum(255 * c // np.maximum(a, 1), 255))
+    return np.concatenate([c.astype(np.uint8), img[..., -1:]], -1)
+
+
+def _pil_nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """Pillow's nearest-neighbour source index of each output pixel on one
+    axis (`ImagingScaleAffine`): the coordinate starts at half the step and
+    grows by the step (in_size / out_size, double) one addition at a time;
+    the last one, n_in - step / 2 give or take the additions' rounding, lies
+    inside the image."""
+    step = n_in / n_out
+    coords = np.empty(n_out)
+    c = step * 0.5
+    for o in range(n_out):
+        coords[o] = c
+        c += step
+    return coords.astype(np.int64)
+
+
+def pil_resize_nearest(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """PIL's `resize((out_w, out_h), NEAREST)` (what `resize` does to modes
+    P and 1 whatever filter is asked for) of an (h, w) or (h, w, c) image."""
+    h, w = img.shape[:2]
+    return np.ascontiguousarray(img[_pil_nearest_index(h, out_h)[:, None], _pil_nearest_index(w, out_w)[None, :]])
+
+
+def canvas_input(img) -> np.ndarray:
+    """The uint8 gray (h, w) or RGB (h, w, 3) image that the canvas pass
+    takes, as the JAX package's `_load_raw` hands it over: 16-bit images as
+    PIL makes them 8-bit (`pil_uint8`), gray+alpha and RGBA through
+    `convert("RGB")` (alpha dropped, gray replicated), CMYK through
+    `pil_rgb`; gray and RGB as they are."""
+    img = pil_uint8(img)
+    if isinstance(img, CmykImage) or (img.ndim == 3 and img.shape[2] != 3):
+        return pil_rgb(img)
+    return img
+
+
+def _luma(img: np.ndarray) -> np.ndarray:
+    """float32 ITU-R 601 luma of `canvas_input`'s image, as canvas.cpp
+    computes it: (0.299 r + 0.587 g) + 0.114 b."""
     if img.ndim == 2:
         return img.astype(np.float32)
-    if img.shape[-1] == 2:
-        img = np.repeat(img[..., :1], 3, axis=-1)
     r, g, b = (img[..., i].astype(np.float32) for i in range(3))
     return (np.float32(0.299) * r + np.float32(0.587) * g) + np.float32(0.114) * b
 
 
-def _area_weights(n_in: int, n_out: int, scale: np.float32) -> np.ndarray:
-    """(n_out, n_in) overlap of each output cell [o*s, (o+1)*s) with each
-    input pixel [i, i+1)."""
-    o = np.arange(n_out, dtype=np.float32)[:, None]
-    i = np.arange(n_in, dtype=np.float32)[None, :]
-    lo, hi = o * scale, (o + 1) * scale
-    return np.clip(np.minimum(i + 1, hi) - np.maximum(i, lo), 0, None).astype(np.float64)
+def _area_taps(n_in: int, n_out: int, s: np.float32):
+    """Each output cell's footprint [o s, (o + 1) s) on one axis, as
+    canvas.cpp computes it: input pixel (n_out, k), overlap (n_out, k)
+    float32, and whether the tap is summed (inside the footprint, overlap
+    above 0), k the widest footprint."""
+    o = np.arange(n_out, dtype=np.float32)
+    lo, hi = o * s, (o + 1) * s
+    first = np.maximum(np.floor(lo).astype(np.int64), 0)
+    count = np.maximum(np.minimum(np.ceil(hi).astype(np.int64), n_in) - first, 0)
+    t = np.arange(int(count.max()))[None, :]
+    i = first[:, None] + t
+    fi = i.astype(np.float32)
+    w = np.minimum(fi + 1, hi[:, None]) - np.maximum(fi, lo[:, None])
+    return np.minimum(i, n_in - 1), w, (t < count[:, None]) & (w > 0)
 
 
-def _bilinear_taps(n_in: int, n_out: int, scale: np.float32):
-    s = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * scale - np.float32(0.5)
-    s = np.clip(s, 0, n_in - 1).astype(np.float32)
-    i0 = s.astype(np.int64)
-    i1 = np.minimum(i0 + 1, n_in - 1)
-    return i0, i1, (s - i0).astype(np.float32)
+def _bilinear_taps(n_in: int, n_out: int, s: np.float32):
+    c = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * s - np.float32(0.5)
+    c = np.minimum(np.maximum(c, np.float32(0)), np.float32(n_in - 1))
+    i0 = c.astype(np.int64)
+    f = c - i0.astype(np.float32)
+    return i0, np.minimum(i0 + 1, n_in - 1), f, np.float32(1) - f
 
 
 def gray_resize(img, out_h: int, out_w: int) -> np.ndarray:
-    """Luma, resized to (out_h, out_w), rounded to uint8."""
-    gray = _luma(pil_uint8(img))
+    """The plain version of the canvas pass (data/native.py): luma of
+    `canvas_input(img)`, resized to (out_h, out_w), rounded to uint8, with
+    canvas.cpp's float32 arithmetic in its order, vectorised over the
+    outputs. An area average sums each output's footprint one tap at a time,
+    rows outer; bit-equal to the library. Used by the tests and the card's
+    smoke test, not on the run path."""
+    gray = _luma(canvas_input(img))
     in_h, in_w = gray.shape
     sy = np.float32(in_h) / np.float32(out_h)
     sx = np.float32(in_w) / np.float32(out_w)
-    if (in_h, in_w) == (out_h, out_w):
-        v = gray  # each output cell covers exactly one input pixel
-    elif sy >= 1 and sx >= 1:
-        wy = _area_weights(in_h, out_h, sy)
-        wx = _area_weights(in_w, out_w, sx)
-        v = (wy @ gray.astype(np.float64) @ wx.T) / np.outer(wy.sum(1), wx.sum(1))
+    if sy >= 1 and sx >= 1:
+        ry, wy, uy = _area_taps(in_h, out_h, sy)
+        rx, wx, ux = _area_taps(in_w, out_w, sx)
+        total = np.zeros((out_h, out_w), np.float32)
+        weight = np.zeros((out_h, out_w), np.float32)
+        for t in range(ry.shape[1]):
+            rows, wyt = gray[ry[:, t]], wy[:, t, None]
+            for u in range(rx.shape[1]):
+                use = uy[:, t, None] & ux[None, :, u]
+                wxu = wx[None, :, u]
+                total = np.where(use, total + rows[:, rx[:, u]] * wyt * wxu, total)
+                weight = np.where(use, weight + wyt * wxu, weight)
+        v = np.where(weight > 0, total / np.where(weight > 0, weight, np.float32(1)), np.float32(0))
     else:
-        y0, y1, fy = _bilinear_taps(in_h, out_h, sy)
-        x0, x1, fx = _bilinear_taps(in_w, out_w, sx)
-        fy, fx = fy[:, None], fx[None, :]
-        r0, r1 = gray[y0], gray[y1]
-        v = (r0[:, x0] * (1 - fy) * (1 - fx) + r0[:, x1] * (1 - fy) * fx
-             + r1[:, x0] * fy * (1 - fx) + r1[:, x1] * fy * fx)
-    return np.clip(v.astype(np.float32) + np.float32(0.5), 0, 255).astype(np.uint8)
+        y0, y1, fy, gy = _bilinear_taps(in_h, out_h, sy)
+        x0, x1, fx, gx = _bilinear_taps(in_w, out_w, sx)
+        fy, gy, r0, r1 = fy[:, None], gy[:, None], gray[y0], gray[y1]
+        v = r0[:, x0] * gy * gx + r0[:, x1] * gy * fx + r1[:, x0] * fy * gx + r1[:, x1] * fy * fx
+    return np.minimum(np.maximum(v + np.float32(0.5), np.float32(0)), np.float32(255)).astype(np.uint8)
 
 
 @dataclass
@@ -565,10 +646,10 @@ def decode_to_canvas(
             img = img[top : top + min(h, hc), left : left + min(w, wc)]
             h, w = img.shape
             sizes[i] = (h, w)
+            y0, x0 = (hc - h) // 2, (wc - w) // 2
+            canvases[i, y0 : y0 + h, x0 : x0 + w] = img
         else:
-            img = gray_resize(raw, h, w)
-        y0, x0 = (hc - h) // 2, (wc - w) // 2
-        canvases[i, y0 : y0 + h, x0 : x0 + w] = img
+            native.gray_resize_center(canvas_input(raw), canvases[i], h, w, paths[i])
 
     with _futures.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
         list(ex.map(place, range(len(paths))))

@@ -8,11 +8,20 @@ to transforms.json, cap the test set and downscale the images to at most
 external dependency that this module never installs; without its CLIs it
 raises RuntimeError naming the missing one.
 
-The downscale is PIL's bilinear resize (data/images.py::pil_resize_bilinear)
-of a PNG or JPEG source, written under the source's name as the JAX
-runner's `img.save(dst)` writes it: a PNG by io/png.py (PIL's pixels, other
-bytes), a JPEG by io/jpeg.py (PIL's default quality 75 and 4:2:0, PIL's
-bytes). A source that is not 8-bit gray or RGB raises ValueError.
+The downscale is what the JAX runner's `Image.open(src).resize(size,
+BILINEAR)` gives for a PNG or JPEG source, in the mode PIL opens it in
+(io/png.py::pil_mode), written under the source's name as its
+`img.save(dst)` writes it: a PNG by io/png.py (PIL's mode and pixels, other
+bytes), a JPEG by io/jpeg.py (PIL's default quality 75 and sampling, PIL's
+bytes). Modes L, RGB and CMYK take Pillow's 8-bit bilinear resize
+(data/images.py::pil_resize_bilinear), I;16 (16-bit gray) its 16-bit one;
+LA and RGBA are premultiplied by alpha, resized and unpremultiplied, as
+Pillow does; 16-bit colour is first made 8-bit as PIL opens it
+(`pil_uint8`). Modes P and 1 take Pillow's nearest-neighbour resize, on the
+pixels read_png gives them: a palette PNG comes out as RGB, a 1-bit one as
+8-bit gray of 0 and 255, where PIL keeps the palette and the 1-bit mode
+(the same pixels after PIL's `convert("RGB")` or `convert("L")`). A mode
+JPEG cannot hold raises OSError, as PIL's save does.
 """
 
 from __future__ import annotations
@@ -26,16 +35,25 @@ from pathlib import Path
 
 import numpy as np
 
-from acezero_tpu_torch.data.images import CmykImage, pil_resize_bilinear, read_image
+from acezero_tpu_torch.data.images import (
+    pil_premultiply,
+    pil_resize_bilinear,
+    pil_resize_nearest,
+    pil_uint8,
+    pil_unpremultiply,
+    read_image,
+)
 from acezero_tpu_torch.export.nerf import export_transforms_json
 from acezero_tpu_torch.io.jpeg import write_jpeg
-from acezero_tpu_torch.io.png import image_size, write_png
+from acezero_tpu_torch.io.png import image_size, pil_mode, write_png
 
 _logger = logging.getLogger(__name__)
 
 MAX_TEST_IMAGES = 1000  # reference run_benchmark.py:96-114
 MAX_IMAGE_SIDE = 640  # reference auto-downscales to <=640 px
 PRELOAD_MAX_FRAMES = 3500  # preload-to-GPU heuristic, run_benchmark.py:244-252
+JPEG_SUFFIXES = (".jpg", ".jpeg", ".jpe", ".jfif")  # PIL picks the format to save by the name
+JPEG_MODES = ("1", "L", "RGB", "CMYK")  # the modes that PIL saves as JPEG (1 as gray of 0 and 255)
 
 
 @dataclass
@@ -57,14 +75,33 @@ def _require_cli(name: str) -> str:
     return path
 
 
-def _resized(src: Path, new_w: int, new_h: int) -> np.ndarray:
-    """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)` of an 8-bit
-    gray or RGB PNG or JPEG."""
+def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str]:
+    """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)` of a PNG or
+    JPEG: its pixels (module note) and the mode PIL opened the file in."""
+    mode = pil_mode(src)
     img = read_image(src)
-    if not isinstance(img, np.ndarray) or img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] == 3):
-        kind = f"{img.mode} {img.shape}" if isinstance(img, CmykImage) else f"{img.dtype} {img.shape}"
-        raise ValueError(f"{src}: only 8-bit gray or RGB images can be downscaled here, got {kind}")
-    return pil_resize_bilinear(img, new_h, new_w)
+    if mode in ("P", "1"):  # Pillow resizes these nearest-neighbour whatever filter is asked for
+        return pil_resize_nearest(img, new_h, new_w), mode
+    if mode == "CMYK":
+        img = img.pixels
+    elif mode != "I;16":  # I;16 resizes in 16 bits, 16-bit colour opens as 8-bit
+        img = pil_uint8(img)
+    if mode == "RGBA" and img.shape[2] == 2:  # 16-bit gray+alpha opens as RGBA
+        img = img[..., [0, 0, 0, 1]]
+    if mode in ("LA", "RGBA"):
+        return pil_unpremultiply(pil_resize_bilinear(pil_premultiply(img), new_h, new_w)), mode
+    return pil_resize_bilinear(img, new_h, new_w), mode
+
+
+def _save(dst: Path, img: np.ndarray, mode: str) -> None:
+    """PIL's `img.save(dst)` of an image of `mode`, its format picked by the
+    name: a JPEG for the JPEG suffixes, a PNG otherwise."""
+    if dst.suffix.lower() in JPEG_SUFFIXES:
+        if mode not in JPEG_MODES:
+            raise OSError(f"cannot write mode {mode} as JPEG")
+        write_jpeg(dst, img)
+    else:
+        write_png(dst, img)
 
 
 def _downscale_images(transforms_path: Path, workdir: Path) -> None:
@@ -80,11 +117,7 @@ def _downscale_images(transforms_path: Path, workdir: Path) -> None:
             continue
         new_size = (round(width * scale), round(height * scale))
         dst = img_dir / src.name
-        small = _resized(src, *new_size)
-        if src.suffix.lower() in (".jpg", ".jpeg", ".jpe", ".jfif"):  # PIL picks the format by the name
-            write_jpeg(dst, small)
-        else:
-            write_png(dst, small)
+        _save(dst, *_resized(src, *new_size))
         for key, factor in (("fl_x", scale), ("fl_y", scale), ("cx", scale), ("cy", scale)):
             frame[key] = frame[key] * factor
         frame["w"], frame["h"] = new_size

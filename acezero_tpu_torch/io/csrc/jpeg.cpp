@@ -22,7 +22,11 @@
 // The encoder writes baseline JPEG as libjpeg-turbo's defaults do: the IJG
 // tables scaled by jpeg_set_quality, rgb_ycc_convert, h2v2_downsample (4:2:0)
 // or none (4:4:4), jpeg_fdct_islow with libjpeg-turbo's reciprocal
-// quantisation, the standard Huffman tables and a JFIF APP0 header.
+// quantisation, the standard Huffman tables and a JFIF APP0 header. Four
+// components are CMYK as PIL saves mode CMYK: each sample inverted (PIL's
+// "CMYK;I"), no colour transform, components 'C', 'M', 'Y', 'K' at 1 x 1
+// on quantisation table 0 and the luma Huffman tables, an Adobe APP14
+// marker (transform 0) and no JFIF header (jcparam.c's JCS_CMYK).
 //
 // Every function is integer arithmetic: the same bits on every host.
 
@@ -1404,7 +1408,7 @@ struct Plane {
 
 void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool sub420, std::vector<uint8_t>& out) {
   if (h < 1 || w < 1 || h > 65535 || w > 65535) fail("JPEG images are 1 to 65535 pixels a side, got %dx%d", w, h);
-  if (nc != 1 && nc != 3) fail("JPEG encoding takes 1 or 3 channels, got %d", nc);
+  if (nc != 1 && nc != 3 && nc != 4) fail("JPEG encoding takes 1, 3 or 4 channels, got %d", nc);
   if (quality < 0 || quality > 100) fail("quality must be 0 to 100, got %d", quality);
   // jpeg_quality_scaling and jpeg_add_quant_table (force_baseline)
   int q = quality <= 0 ? 1 : quality;
@@ -1418,8 +1422,9 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
       qt[t][i] = static_cast<uint16_t>(v);
       div[t][i] = reciprocal(static_cast<uint32_t>(v) << 3);
     }
-  const bool color = nc == 3;
+  const bool color = nc == 3, cmyk = nc == 4;
   const int hy = color && sub420 ? 2 : 1;  // luma sampling factors (h = v)
+  const int tbl[4] = {0, color, color, 0};  // quantisation and Huffman table of each component
 
   // full-resolution planes: rgb_ycc_convert's tables
   std::vector<uint8_t> full[3];
@@ -1449,12 +1454,13 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
     y = std::min(y, h - 1);
     x = std::min(x, w - 1);
     size_t i = static_cast<size_t>(y) * w + x;
+    if (cmyk) return 255 - img[4 * i + ci];
     return color ? full[ci][i] : img[i];
   };
   // each component's samples over its whole blocks: the image edges
   // replicated (jcsample.c's expand_right_edge, jcprepct.c's
   // expand_bottom_edge), chroma through h2v2_downsample for 4:2:0
-  Plane pl[3];
+  Plane pl[4];
   for (int ci = 0; ci < nc; ++ci) {
     Plane& p = pl[ci];
     bool down = ci > 0 && hy == 2;
@@ -1482,10 +1488,10 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
     }
   }
   // quantised coefficients of every block
-  std::vector<int16_t> coef[3];
+  std::vector<int16_t> coef[4];
   for (int ci = 0; ci < nc; ++ci) {
     const Plane& p = pl[ci];
-    const Divisor* dv = div[ci > 0 ? 1 : 0];
+    const Divisor* dv = div[tbl[ci]];
     coef[ci].resize(static_cast<size_t>(p.bw) * p.bh * 64);
     int32_t blk[64];
     for (int by = 0; by < p.bh; ++by)
@@ -1504,14 +1510,20 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
       }
   }
 
-  // headers: SOI, JFIF APP0 (version 1.01, no density unit, 1:1), DQT, SOF0, DHT
+  // headers: SOI, JFIF APP0 (version 1.01, no density unit, 1:1) or for
+  // CMYK Adobe APP14 (version 100, no flags, transform 0), DQT, SOF0, DHT
   auto put16 = [&](int v) {
     out.push_back(static_cast<uint8_t>(v >> 8));
     out.push_back(static_cast<uint8_t>(v & 255));
   };
   const uint8_t app0[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00,
                           0x01, 0x01, 0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
-  out.insert(out.end(), app0, app0 + sizeof app0);
+  const uint8_t app14[] = {0xFF, 0xD8, 0xFF, 0xEE, 0x00, 0x0E, 'A', 'd', 'o', 'b', 'e',
+                           0x00, 0x64, 0x00, 0x00, 0x00, 0x00, 0x00};
+  if (cmyk)
+    out.insert(out.end(), app14, app14 + sizeof app14);
+  else
+    out.insert(out.end(), app0, app0 + sizeof app0);
   for (int t = 0; t < (color ? 2 : 1); ++t) {
     out.push_back(0xFF);
     out.push_back(0xDB);
@@ -1526,10 +1538,11 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
   put16(h);
   put16(w);
   out.push_back(static_cast<uint8_t>(nc));
+  const uint8_t cmyk_ids[4] = {'C', 'M', 'Y', 'K'};
   for (int ci = 0; ci < nc; ++ci) {
-    out.push_back(static_cast<uint8_t>(ci + 1));
+    out.push_back(cmyk ? cmyk_ids[ci] : static_cast<uint8_t>(ci + 1));
     out.push_back(static_cast<uint8_t>(ci == 0 ? (hy << 4) | hy : 0x11));
-    out.push_back(static_cast<uint8_t>(ci > 0));
+    out.push_back(static_cast<uint8_t>(tbl[ci]));
   }
   auto dht = [&](int cls_id, const uint8_t* bits, const uint8_t* vals) {
     int total = 0;
@@ -1552,8 +1565,8 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
   put16(6 + 2 * nc);
   out.push_back(static_cast<uint8_t>(nc));
   for (int ci = 0; ci < nc; ++ci) {
-    out.push_back(static_cast<uint8_t>(ci + 1));
-    out.push_back(ci ? 0x11 : 0x00);
+    out.push_back(cmyk ? cmyk_ids[ci] : static_cast<uint8_t>(ci + 1));
+    out.push_back(static_cast<uint8_t>(tbl[ci] ? 0x11 : 0x00));
   }
   out.push_back(0);
   out.push_back(63);
@@ -1565,10 +1578,10 @@ void encode_image(const uint8_t* img, int h, int w, int nc, int quality, bool su
   const HuffEnc hdc[2] = {make_enc(kDcLumaBits, kDcVals), make_enc(kDcChromaBits, kDcVals)};
   const HuffEnc hac[2] = {make_enc(kAcLumaBits, kAcLumaVals), make_enc(kAcChromaBits, kAcChromaVals)};
   BitWriter bw{out};
-  int last_dc[3] = {0, 0, 0};
+  int last_dc[4] = {0, 0, 0, 0};
   auto encode_block = [&](int ci, const int16_t* b, int dcval) {
-    const HuffEnc& d = hdc[ci > 0];
-    const HuffEnc& a = hac[ci > 0];
+    const HuffEnc& d = hdc[tbl[ci]];
+    const HuffEnc& a = hac[tbl[ci]];
     int diff = dcval - last_dc[ci];
     last_dc[ci] = dcval;
     int mag = diff < 0 ? -diff : diff, nb = nbits(mag);
@@ -1672,7 +1685,8 @@ int acz_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_s
   return 1;
 }
 
-// encode an (h, w, c) uint8 image, c 1 or 3, into `out` of `cap` bytes.
+// encode an (h, w, c) uint8 image, c 1 (gray), 3 (RGB) or 4 (CMYK, as PIL
+// holds mode CMYK), into `out` of `cap` bytes.
 // Returns the file's length (larger than cap: nothing was written, call
 // again with that capacity), or -1 with a message.
 int64_t acz_jpeg_encode(const uint8_t* img, int h, int w, int c, int quality, int subsample_420, uint8_t* out,

@@ -12,7 +12,8 @@ truncated or corrupt data raise ValueError naming the file.
 
 `write_jpeg(path, img, quality=75, subsampling="4:2:0")` writes baseline
 JPEG byte for byte as PIL's `Image.fromarray(img).save(path, quality=...)`
-does.
+does; an (h, w, 4) image is CMYK, as `read_jpeg` returns it, and is
+written as PIL saves mode CMYK (Adobe APP14, no JFIF, 1 x 1 sampling).
 
 The library is built from source on first use (ops/build.py::load_host).
 ctypes releases the GIL for the length of each call, so a thread pool
@@ -73,15 +74,16 @@ def read_jpeg(path) -> np.ndarray:
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> bytes:
-    """Baseline JPEG bytes of an 8-bit gray (h, w) or RGB (h, w, 3) image;
-    `subsampling` applies to RGB and is "4:2:0" or "4:4:4"."""
+    """Baseline JPEG bytes of an 8-bit gray (h, w), RGB (h, w, 3) or CMYK
+    (h, w, 4) image; `subsampling` applies to RGB and is "4:2:0" or
+    "4:4:4"."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"write_jpeg takes uint8 (h, w) or (h, w, 3), got {img.dtype} {img.shape}")
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"write_jpeg takes uint8 (h, w), (h, w, 3) or (h, w, 4), got {img.dtype} {img.shape}")
     if subsampling not in SUBSAMPLING:
         raise ValueError(f"subsampling must be one of {sorted(SUBSAMPLING)}, got {subsampling!r}")
     h, w = img.shape[:2]
-    c = 1 if img.ndim == 2 else 3
+    c = 1 if img.ndim == 2 else img.shape[2]
     lib = _lib()
     err = ctypes.create_string_buffer(_ERR_BYTES)
     cap = 2 * img.size + 4096
@@ -99,7 +101,8 @@ def encode_jpeg(img: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") 
 
 def write_jpeg(path, img: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> None:
     """Write `img` as PIL's `Image.fromarray(img).save(path, quality=quality,
-    subsampling=subsampling)` would; a gray image as PIL's save without the
-    subsampling option, which no caller passes for one (PIL then writes 2 x 2
-    sampling factors on the single component)."""
+    subsampling=subsampling)` would; a gray or CMYK (h, w, 4) image as PIL's
+    save without the subsampling option, which no caller passes for one (PIL
+    then writes 2 x 2 sampling factors on the single gray component, 1 x 1
+    on each of the four)."""
     Path(path).write_bytes(encode_jpeg(img, quality, subsampling))

@@ -8,10 +8,13 @@ is rebuilt only when one of them changes. Builds happen on first use, never
 at import, and all requested sources compile in parallel.
 
 A host library (`load_host`: a `.cpp` source anywhere in the package, such
-as io/csrc/jpeg.cpp) is built with `c++` (the compiler nvcc drives) and
-HOST_FLAGS: integer code, no -ffast-math or -march=native, so it gives the
-same bits on every host. It lands in `_build/<stem>-<hash>.so`, the hash
-over the source and the flags.
+as io/csrc/jpeg.cpp or data/csrc/canvas.cpp) is built with `c++` (the
+compiler nvcc drives) and HOST_FLAGS, so that it gives the same bits on
+every host: no -ffast-math or -march=native, and -ffp-contract=off, so
+that a host whose baseline has fused multiply-add (aarch64) cannot fuse
+the canvas pass's float32 products and sums and drift from its numpy
+version (the JPEG codec is integer code). It lands in
+`_build/<stem>-<hash>.so`, the hash over the source and the flags.
 
 Every library is written to a temporary name and renamed, so concurrent
 processes never load a half-written file. There is no fallback: a missing
@@ -36,7 +39,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+HOST_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,8 @@ it ends, with its wall seconds; the first failure raises and ends the run.
 Phases:
   0 device    the card, its power limit, the torch/CUDA versions
   1 build     nvcc builds every kernel of the paths from csrc/, in parallel,
-              and c++ the host JPEG codec (io/csrc/jpeg.cpp), with the
+              and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp)
+              and the canvas pass (data/csrc/canvas.cpp), with the
               compiler's version and seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
@@ -80,9 +81,12 @@ Phases:
               visualizer buffer (the pickle's cloud bit for bit) and from
               the network (K1), export_cli cameras, the Nerfstudio
               transforms.json of the JPEG frames, the runner's missing-CLI
-              error and its JPEG downscale, and Regressor.forward against
-              the export's predict_coords bit for bit; counts zeroed just
-              before each main-path call and read just after
+              error and its JPEG downscale, the runner's downscale of one
+              source of each kind PIL opens (RUNNER_SOURCES) against PIL's
+              results (tests/data/runner/pil_digests.json), and
+              Regressor.forward against the export's predict_coords bit for
+              bit; counts zeroed just before each main-path call and read
+              just after
  12 jpeg      the host JPEG codec: the committed fixtures (every kind the
               decoder reads: baseline, progressive, any sampling factors,
               CMYK and YCCK, arithmetic coding, lossless) decode to PIL's
@@ -93,9 +97,12 @@ Phases:
               content (the crop), write_jpeg writes PIL's bytes for the
               JPEG_ROUNDTRIP frames, then
               JPEG_PHOTO_FRAMES frames of JPEG_PHOTO_HW: read_jpeg's ms and
-              MP/s, threads against one thread, decode_to_canvas at a 480
-              short side with each of JPEG_WORKERS (each in a fresh
-              process: ms per image, MP/s, the peak RSS growth), and the
+              MP/s, threads against one thread, the canvas pass on each
+              frame alone against its plain numpy version (equal sha256,
+              ms of each), decode_to_canvas at a 480 short side with each
+              of JPEG_WORKERS (each in a fresh process: ms per image, MP/s,
+              the peak RSS growth; the canvases must be the plain
+              version's), and the
               warm read of the decode cache on phase bare's JPEG glob (a
               hit)
  13 spill     MappingTrainer on the shipped poses at full width, the device
@@ -428,6 +435,30 @@ JPEG_PHOTO_HW = (3286, 4946)
 JPEG_PHOTO_FRAMES = 8
 JPEG_PHOTO_QUALITY = 95
 JPEG_WORKERS = (1, 16)
+# the Nerfstudio runner's downscale in phase render: one source of each kind
+# of image PIL opens, wider than the runner's 640-pixel bound, name: (kind,
+# (h, w)); the kind is PIL's mode, or ";16" for 16-bit colour. The port
+# writes them (runner_source, write_runner_sources), but for the palette and
+# 1-bit ones, which it has no writer for: those are committed fixtures.
+# PIL's results (the JAX runner's resize and save) are in
+# tests/data/runner/pil_digests.json, made by scripts/make_runner_fixtures.py
+RUNNER_FIXTURES = ROOT / "tests" / "data" / "runner"
+RUNNER_SOURCES = {
+    "gray.png": ("L", (40, 700)),
+    "rgb.png": ("RGB", (33, 901)),
+    "gray_alpha.png": ("LA", (37, 1000)),
+    "rgba.png": ("RGBA", (29, 777)),
+    "gray16.png": ("I;16", (41, 1283)),
+    "rgb16.png": ("RGB;16", (23, 650)),
+    "rgba16.png": ("RGBA;16", (31, 943)),
+    "gray_alpha16.png": ("LA;16", (27, 710)),
+    "palette.png": ("P", (24, 900)),
+    "bilevel.png": ("1", (20, 1000)),
+    "gray.jpg": ("L", (35, 800)),
+    "rgb.jpg": ("RGB", (43, 1111)),
+    "cmyk.jpg": ("CMYK", (30, 960)),
+}
+RUNNER_PALETTE = [(i * 37 % 256, i * 91 % 256, 255 - i * 16) for i in range(16)]  # palette.png's colours
 FRAMES = "frame_*.png"
 N_FRAMES = 60
 DEVICE = "cuda"
@@ -852,6 +883,126 @@ def jpeg_roundtrip_frame(np, i: int):
     return img[..., 1].copy() if i == 3 else img
 
 
+def runner_source(np, name: str):
+    """The pixels of runner source `name`: integer ramps, a hashed texture
+    and an alpha that is 0, 255 and a ramp between, no random draws, so
+    every numpy gives the same pixels. uint8 but for the 16-bit kinds
+    (uint16); palette.png gives its palette indices (into RUNNER_PALETTE),
+    bilevel.png booleans."""
+    kind, (h, w) = RUNNER_SOURCES[name]
+    i = list(RUNNER_SOURCES).index(name)
+    y, x = np.mgrid[:h, :w].astype(np.int64)
+    r = (x * (3 + i) // 4 + y * 5 + (x * y * 7919 + i * 104729) % 37) % 256
+    g = (y * 11 + x // 3 + (x * 31 + y * 17 * (i + 1)) % 23) % 256
+    b = ((x + y) * 2 + (x ^ y) * (i + 1)) % 256
+    a = np.clip((x * 7 + y * 13) % 383 - 64, 0, 255)
+    if kind == "P":
+        return ((x // 9 + y // 4) % len(RUNNER_PALETTE)).astype(np.uint8)
+    if kind == "1":
+        return (x // 7 + y // 3) % 3 == 0
+    if kind.endswith(";16"):
+        r, g, b, a = r * 256 + g, g * 256 + b, b * 256 + r, a * 257
+    planes = {"L": [r], "I;16": [r], "RGB": [r, g, b], "RGB;16": [r, g, b], "LA": [r, a], "LA;16": [r, a],
+              "RGBA": [r, g, b, a], "RGBA;16": [r, g, b, a], "CMYK": [r, g, b, 255 - a]}[kind]
+    out = np.stack(planes, -1).astype(np.uint16 if kind.endswith("16") else np.uint8)
+    return out[..., 0] if len(planes) == 1 else out
+
+
+def write_runner_sources(np, out: Path) -> list[str]:
+    """Write the runner sources into `out` with the port's writers, the
+    palette and 1-bit ones copied from RUNNER_FIXTURES; their paths."""
+    from acezero_tpu_torch.io.jpeg import write_jpeg
+    from acezero_tpu_torch.io.png import write_png
+
+    out.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for name, (kind, _) in RUNNER_SOURCES.items():
+        dst = out / name
+        if kind in ("P", "1"):
+            shutil.copyfile(RUNNER_FIXTURES / name, dst)
+        elif name.endswith(".jpg"):
+            write_jpeg(dst, runner_source(np, name))
+        else:
+            write_png(dst, runner_source(np, name))
+        paths.append(str(dst))
+    return paths
+
+
+def runner_downscale(runner, paths: list[str], work: Path) -> dict:
+    """A Nerfstudio runner's `_downscale_images` over a transforms.json of
+    one frame a source (focal 500, the principal point in the middle):
+    source name -> the frame it rewrote."""
+    work.mkdir(parents=True, exist_ok=True)
+    frames = []
+    for p in paths:
+        h, w = RUNNER_SOURCES[Path(p).name][1]
+        frames.append({"file_path": p, "fl_x": 500.0, "fl_y": 500.0, "cx": w / 2, "cy": h / 2, "w": w, "h": h})
+    transforms = work / "transforms.json"
+    transforms.write_text(json.dumps({"frames": frames, "train_filenames": list(paths), "test_filenames": []}))
+    runner._downscale_images(transforms, work)
+    return {Path(p).name: f for p, f in zip(paths, json.loads(transforms.read_text())["frames"])}
+
+
+def runner_kinds_check(np, runner, work: Path) -> dict:
+    """The runner's downscale of every runner source, written into `work`,
+    against PIL's results (RUNNER_FIXTURES/pil_digests.json): for each
+    source, whether its pixels, the frame's new size, focal and principal
+    point, and the output's bytes (a JPEG) or mode and pixels (a PNG)
+    equal PIL's, and all of them together (`equal_to_pil`)."""
+    from acezero_tpu_torch.data.images import read_png
+    from acezero_tpu_torch.io.png import pil_mode
+
+    want = json.loads((RUNNER_FIXTURES / "pil_digests.json").read_text())
+    frames = runner_downscale(runner, write_runner_sources(np, work / "sources"), work / "out")
+    kinds = {}
+    for name, fr in frames.items():
+        w, path = want[name], Path(fr["file_path"])
+        check = {"kind": RUNNER_SOURCES[name][0], "hw": [fr["h"], fr["w"]],
+                 "source_equal": array_digest(runner_source(np, name)) == w["source_sha256"],
+                 "frame_equal": path.name == name and all(fr[k] == w[k] for k in ("w", "h", "fl_x", "fl_y", "cx", "cy"))}
+        if name.endswith(".jpg"):
+            check["bytes_equal"] = hashlib.sha256(path.read_bytes()).hexdigest() == w["bytes_sha256"]
+        else:
+            check.update(mode=pil_mode(path), pil_mode=w["pil_mode"])
+            check["pixels_equal"] = check["mode"] == w["mode"] and array_digest(read_png(path)) == w["sha256"]
+        check["equal_to_pil"] = all(v for k, v in check.items() if k.endswith("_equal"))
+        kinds[name] = check
+    return kinds
+
+
+def canvas_pass_check(np, files: list[str], short_size: int):
+    """The canvas pass (data/csrc/canvas.cpp) on each image file alone, one
+    thread, against its plain numpy version (images.gray_resize), at the
+    size decode_to_canvas gives it for `short_size`: a record (each sha256
+    equal or not, ms of each) and the canvases built from the plain
+    version, which decode_to_canvas must give. The files share one size."""
+    from acezero_tpu_torch.data import native
+    from acezero_tpu_torch.data.images import canvas_input, gray_resize, read_image
+
+    img = canvas_input(read_image(files[0]))
+    orig = np.array([img.shape[:2]], np.int32)  # decode_to_canvas's arithmetic
+    out_h, out_w = (int(v) for v in np.round(orig * (short_size / orig.min(axis=1).astype(np.float32))[:, None])
+                    .astype(np.int32)[0])
+    hc, wc = (-(-v // 8) * 8 for v in (out_h, out_w))
+    plain_canvases = np.zeros((len(files), hc, wc), np.uint8)
+    got = np.zeros((out_h, out_w), np.uint8)
+    native.gray_resize_center(got[:1, :1], np.zeros((1, 1), np.uint8), 1, 1)  # load the library first
+    pass_s, plain_s, equal = [], [], []
+    for i, f in enumerate(files):
+        img = canvas_input(read_image(f))
+        t0 = time.perf_counter()
+        native.gray_resize_center(img, got, out_h, out_w, f)
+        pass_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        plain = gray_resize(img, out_h, out_w)
+        plain_s.append(time.perf_counter() - t0)
+        equal.append(array_digest(got) == array_digest(plain))
+        plain_canvases[i, (hc - out_h) // 2:(hc - out_h) // 2 + out_h, (wc - out_w) // 2:(wc - out_w) // 2 + out_w] = plain
+    return {"out_hw": [out_h, out_w], "equal_to_plain": f"{sum(equal)}/{len(equal)}", "equal": all(equal),
+            "pass_ms": statistics.median(pass_s) * 1e3, "pass_ms_each": [t * 1e3 for t in pass_s],
+            "plain_ms": statistics.median(plain_s) * 1e3}, plain_canvases
+
+
 def tinted(np, img):
     """(h, w, 3) uint8: a gray (or RGB) frame with JPEG_TINT added to its
     channels."""
@@ -957,6 +1108,7 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.registration.driver import _canvas_prologue
     from acezero_tpu_torch.registration.ransac import RansacConfig, estimate_poses_batch
     from acezero_tpu_torch.data.depth import learned_depth_estimator
+    from acezero_tpu_torch.data import native as tnative
     from acezero_tpu_torch.data.images import decode_to_canvas, pil_resize_bilinear, read_png, read_rgb
     from acezero_tpu_torch.io import jpeg as tjpeg
     from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
@@ -990,15 +1142,20 @@ def main(argv=None) -> int:
     if "build" in phases:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
-            # the host JPEG codec (c++) builds while nvcc builds the kernels
-            with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-                host = ex.submit(build.build_host, tjpeg.SOURCE)
+            # the host libraries (c++: the JPEG codec and the canvas pass)
+            # build while nvcc builds the kernels
+            host_sources = (tjpeg.SOURCE, tnative.SOURCE)
+            with concurrent.futures.ThreadPoolExecutor(max_workers=len(host_sources)) as ex:
+                hosts = [ex.submit(build.build_host, src) for src in host_sources]
                 build.build([fh.KERNEL, fh.KERNEL_BWD])
                 rec["seconds_nvcc"] = time.perf_counter() - t0
-                host.result()
-            info = build.build_info["jpeg"]
-            rec.update(seconds_host=info["seconds"], host_compiler=info.get("compiler"),
-                       host_library=build.host_target(tjpeg.SOURCE).name, host_log=info["log"][-500:])
+                for h in hosts:
+                    h.result()
+            rec["host"] = {}
+            for src in host_sources:
+                info = build.build_info[src.stem]
+                rec["host"][src.stem] = {"seconds": info["seconds"], "compiler": info.get("compiler"),
+                                         "library": build.host_target(src).name, "log": info["log"][-500:]}
             for name in (fh.KERNEL, fh.KERNEL_BWD):
                 log = build.build_info[name]["log"]
                 rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
@@ -1875,7 +2032,18 @@ def main(argv=None) -> int:
                         and sorted(Path(fr["file_path"]).name for fr in frames_out) == sorted(by_name)
                         and max(diffs) < 8.0, f"the runner's JPEG downscale: {rec['nerfstudio']['downscale']}")
 
-            # 7. Regressor against the export path, one K1 launch each
+            # 7. the runner's downscale of one source of each kind PIL opens,
+            # against PIL's (the JAX runner's) results: the frame's new size
+            # and focal, the output's mode and pixels (PNG) or bytes (JPEG)
+            t0 = time.perf_counter()
+            kinds = runner_kinds_check(np, nerfstudio_runner, out / "runner")
+            rec["runner_kinds"] = {"seconds": time.perf_counter() - t0,
+                                   "equal_to_pil": f"{sum(c['equal_to_pil'] for c in kinds.values())}/{len(kinds)}",
+                                   "sources": kinds}
+            require(sorted(kinds) == sorted(RUNNER_SOURCES) and all(c["equal_to_pil"] for c in kinds.values()),
+                    f"the runner's downscale is not PIL's: {[n for n, c in kinds.items() if not c['equal_to_pil']]}")
+
+            # 8. Regressor against the export path, one K1 launch each
             files = sorted(glob.glob(bare_glob))[:REGRESSOR_FRAMES]
             canvases = decode_to_canvas(files, short_size=480).canvases
             reg = Regressor.create_from_split_state_dict(ENCODER, final_head, device=DEVICE)
@@ -1895,7 +2063,8 @@ def main(argv=None) -> int:
 
     if "jpeg" in phases:
         with phase("jpeg", {}) as rec:
-            rec.update(kind=kind, nvidia_smi=smi, host_compiler=build.build_info.get("jpeg", {}).get("compiler"))
+            rec.update(kind=kind, nvidia_smi=smi, host_compiler=build.build_info.get("jpeg", {}).get("compiler"),
+                       canvas_library=build.host_target(tnative.SOURCE).name)
             # (a) the committed fixtures decode to PIL's arrays
             digests = json.loads((JPEG_FIXTURES / "pil_digests.json").read_text())
             fixtures = {}
@@ -1981,6 +2150,10 @@ def main(argv=None) -> int:
             require(all(sh == (*JPEG_PHOTO_HW, 3) for sh in shapes), "a threaded decode gave another shape")
             require(serial / threaded > 2.0, f"{len(files)} threads decode only {serial / threaded:.2f}x as fast as one: "
                                              "the GIL is not released")
+            # the canvas pass on each frame alone against its plain version
+            rec["canvas_pass"], plain_canvases = canvas_pass_check(np, files, 480)
+            rec["canvas_pass"]["pass_mp_per_s"] = mp / rec["canvas_pass"]["pass_ms"] * 1e3
+            require(rec["canvas_pass"]["equal"], f"the canvas pass differs from gray_resize: {rec['canvas_pass']}")
             # decode_to_canvas, each worker count in a fresh process
             runs = {w: photo_decode_child(ROOT, str(photo / "*.jpg"), w) for w in JPEG_WORKERS}
             for w, r in runs.items():
@@ -1990,6 +2163,8 @@ def main(argv=None) -> int:
             rec["decode_to_canvas_speedup"] = runs[w1]["seconds"] / runs[wn]["seconds"]
             require(len({r["sha256"] for r in runs.values()}) == 1 and runs[w1]["frames"] == JPEG_PHOTO_FRAMES,
                     f"decode_to_canvas differs between worker counts: {rec['decode_to_canvas']}")
+            rec["decode_to_canvas_equal_to_plain"] = runs[w1]["sha256"] == hashlib.sha256(plain_canvases.tobytes()).hexdigest()
+            require(rec["decode_to_canvas_equal_to_plain"], "decode_to_canvas's canvases are not the plain version's")
             shutil.rmtree(photo)
 
             # (d) the warm read of the decode cache that the bare run filled

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Write the fixtures that hold the port's Nerfstudio runner downscale to
+PIL's where there is no PIL (the card's machine):
+
+- tests/data/runner/palette.png and bilevel.png: the runner sources of
+  modes P and 1 (chip_smoke.RUNNER_SOURCES), which the port has no writer
+  for, saved by PIL from chip_smoke.runner_source's pixels;
+- tests/data/runner/pil_digests.json: for each runner source, the sha256
+  of chip_smoke.runner_source's pixels, and what the JAX runner's
+  downscale (PIL's `resize(BILINEAR)` and `save`) makes of the source that
+  chip_smoke.write_runner_sources writes: the frame's new size, focal and
+  principal point, and the output's bytes (a JPEG) or its mode and pixels
+  as PIL opens it (a PNG; modes P and 1 after PIL's `convert("RGB")` and
+  `convert("L")`, the pixels the port writes for them).
+
+    python3 scripts/make_runner_fixtures.py
+
+tests/test_torch_jpeg.py checks the digests against PIL, the JAX runner
+and the port on every run, so the file cannot go stale; chip_smoke.py's
+phase render checks the port against them on the card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+from PIL import Image
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+OUT = chip_smoke.RUNNER_FIXTURES
+LOST_MODES = {"P": "RGB", "1": "L"}  # PIL keeps these modes; the port writes their pixels in these
+
+
+def write_fixtures() -> None:
+    """The P and 1 sources, saved by PIL."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    for name, (kind, _) in chip_smoke.RUNNER_SOURCES.items():
+        if kind == "P":
+            img = Image.fromarray(chip_smoke.runner_source(np, name), "P")
+            img.putpalette([c for rgb in chip_smoke.RUNNER_PALETTE for c in rgb])
+            img.save(OUT / name)
+        elif kind == "1":
+            Image.fromarray(chip_smoke.runner_source(np, name)).save(OUT / name)
+
+
+def digests(work: Path) -> dict:
+    """PIL's results for every runner source, the sources written into `work`."""
+    from acezero_tpu.export import nerfstudio_runner as jrunner
+
+    paths = chip_smoke.write_runner_sources(np, work / "sources")
+    frames = chip_smoke.runner_downscale(jrunner, paths, work / "jax")
+    out = {}
+    for name, fr in frames.items():
+        entry = {"source_sha256": chip_smoke.array_digest(chip_smoke.runner_source(np, name)),
+                 **{k: fr[k] for k in ("w", "h", "fl_x", "fl_y", "cx", "cy")}}
+        if name.endswith(".jpg"):
+            entry["bytes_sha256"] = hashlib.sha256(Path(fr["file_path"]).read_bytes()).hexdigest()
+        else:
+            with Image.open(fr["file_path"]) as img:
+                mode = LOST_MODES.get(img.mode, img.mode)
+                arr = np.asarray(img.convert(mode) if img.mode in LOST_MODES else img)
+                entry.update(pil_mode=img.mode, mode=mode, shape=list(arr.shape),
+                             sha256=chip_smoke.array_digest(arr))
+        out[name] = entry
+    return out
+
+
+def main() -> None:
+    write_fixtures()
+    with tempfile.TemporaryDirectory() as tmp:
+        table = digests(Path(tmp))
+    (OUT / "pil_digests.json").write_text(json.dumps(table, indent=1, sort_keys=True) + "\n")
+    print(f"wrote {len(table)} digests and {sum(k in ('P', '1') for k, _ in chip_smoke.RUNNER_SOURCES.values())} "
+          f"fixtures to {OUT}")
+
+
+if __name__ == "__main__":
+    main()

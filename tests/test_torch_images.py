@@ -104,10 +104,7 @@ def test_canvas_matches_jax(short):
     np.testing.assert_array_equal(got.orig_sizes, want.orig_sizes)
     np.testing.assert_array_equal(got.scale_factors, want.scale_factors)
     diff = np.abs(got.canvases.astype(int) - want.canvases.astype(int))
-    if short == 480:
-        assert diff.max() == 0
-    else:
-        assert diff.max() <= 1
+    assert diff.max() == 0
 
 
 @pytest.mark.parametrize("short", [300, 600])
@@ -123,7 +120,7 @@ def test_canvas_rgb_rescale_matches_jax(tmp_path, short):
     got = timg.decode_to_canvas(paths, short_size=short // 4, num_workers=2)
     want = jimg.decode_to_canvas(paths, short_size=short // 4, num_workers=2)
     np.testing.assert_array_equal(got.sizes, want.sizes)
-    assert np.abs(got.canvases.astype(int) - want.canvases.astype(int)).max() <= 1
+    assert np.abs(got.canvases.astype(int) - want.canvases.astype(int)).max() == 0
 
 
 @pytest.mark.parametrize("focal", [None, 520.0])

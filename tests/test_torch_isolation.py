@@ -1,7 +1,9 @@
 """The port and chip_smoke.py stand alone: no JAX, no acezero_tpu, no PIL,
 no other image library, no ninja and no torch.utils.cpp_extension, both by
 an AST scan of every import and by importing them with those modules
-blocked."""
+blocked; and no file of the port names the JAX package's canvas pass
+(native/canvas.cpp, its library libacezero_canvas) or builds a path into
+native/: the port keeps its own copy (data/csrc/canvas.cpp)."""
 
 import ast
 import os
@@ -15,6 +17,10 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "acezero_tpu", "PIL", "cv2", "imageio", "torchvision", "ninja",
              "torch.utils.cpp_extension")
 FILES = sorted((ROOT / "acezero_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# every source file of the port, whatever its language, and chip_smoke.py
+SOURCES = sorted(p for p in (ROOT / "acezero_tpu_torch").rglob("*")
+                 if p.is_file() and p.suffix in (".py", ".cpp", ".cu", ".cuh", ".h")) + [ROOT / "chip_smoke.py"]
+JAX_NATIVE_NAMES = ("native/canvas.cpp", "libacezero_canvas")
 
 
 def _imports(path: Path):
@@ -37,10 +43,21 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_use_of_the_jax_packages_native_pass(path):
+    text = path.read_text()
+    assert not [n for n in JAX_NATIVE_NAMES if n in text], f"{path} names the JAX package's canvas pass"
+    if path.suffix == ".py":  # nor a path built from a "native" directory name
+        consts = {node.value for node in ast.walk(ast.parse(text)) if isinstance(node, ast.Constant)
+                  and isinstance(node.value, str)}
+        assert not [c for c in consts if c == "native" or c.startswith("native/")], f"{path} names native/"
+
+
 def test_files_found():
     assert len(FILES) > 20
     assert (ROOT / "acezero_tpu_torch" / "ops" / "csrc" / "fused_head_fwd.cu").exists()
     assert {ROOT / "acezero_tpu_torch" / "parallel" / n for n in ("__init__.py", "mesh.py")} <= set(FILES)
+    assert ROOT / "acezero_tpu_torch" / "data" / "csrc" / "canvas.cpp" in SOURCES
 
 
 _BLOCKER = """

@@ -18,7 +18,14 @@ package on the CPU.
 - `read_rgb`, `pil_luma_u8` and decode_to_canvas give PIL's and the JAX
   package's results on four-component files, and decode_to_canvas with a
   canvas smaller than the content gives the JAX package's crop;
-- `write_jpeg` gives PIL's bytes;
+- `write_jpeg` gives PIL's bytes, for gray, RGB and CMYK;
+- the Nerfstudio runner's downscale of a source of every mode PIL opens
+  (chip_smoke.RUNNER_SOURCES, written by the port and by PIL) gives the
+  JAX runner's (PIL's) JPEG bytes and PNG mode and pixels, a palette or
+  1-bit source as its RGB or gray pixels; the committed digests
+  (tests/data/runner/pil_digests.json, which the card checks) are PIL's;
+  Pillow's premultiply round trip over every (value, alpha), its 16-bit
+  and nearest-neighbour resizes, and write_png's modes, against PIL;
 - decode_to_canvas, read_rgb and the point cloud's frame colours give the
   JAX package's (PIL's) results on JPEG and PNG globs, holding at most
   num_workers decoded images;
@@ -53,6 +60,7 @@ from acezero_tpu_torch.data import images as timg
 from acezero_tpu_torch.data.scene import load_scene as t_load_scene
 from acezero_tpu_torch.export import point_cloud as tpc
 from acezero_tpu_torch.io import jpeg as tjpeg
+from acezero_tpu_torch.io import png as tpng
 from acezero_tpu_torch.ops import build
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -563,10 +571,8 @@ def test_canvas_matches_jax_on_a_mixed_glob(short, resized, tmp_path, big_blocks
         assert np.array_equal(getattr(got, k), getattr(want, k)), k
     assert got.canvases.shape == want.canvases.shape
     diff = np.abs(got.canvases.astype(int) - want.canvases.astype(int))
-    # unresized, the decode and the luma are bit-equal; a shrink rounds the
-    # area average as tests/test_torch_images.py's PNG canvases do (float64
-    # sums here, float32 in native/canvas.cpp)
-    assert diff.max() == 0 if not resized else diff.max() <= 1
+    # resized or not, the canvas pass gives the JAX package's bits
+    assert diff.max() == 0
 
 
 def test_read_rgb_matches_pils_convert(tmp_path):
@@ -604,9 +610,7 @@ def test_four_component_canvases_match_jax(short, resized, tmp_path):
         assert np.array_equal(getattr(got, k), getattr(want, k)), k
     assert got.canvases.shape == want.canvases.shape
     diff = np.abs(got.canvases.astype(int) - want.canvases.astype(int))
-    # as test_canvas_matches_jax_on_a_mixed_glob: bit-equal unresized, a
-    # shrink rounds the area average in float64 here, float32 there
-    assert diff.max() == 0 if not resized else diff.max() <= 1
+    assert diff.max() == 0  # as test_canvas_matches_jax_on_a_mixed_glob
     for p in paths:
         assert np.array_equal(timg.read_rgb(p), np.asarray(Image.open(p).convert("RGB"))), p
 
@@ -669,12 +673,181 @@ def test_oversize_sizes_round_in_float64(tmp_path):
             assert np.array_equal(getattr(got, k), getattr(want, k)), (short, k)
 
 
-def test_runner_refuses_a_cmyk_source(tmp_path):
-    from acezero_tpu_torch.export import nerfstudio_runner
+# ------------------------------------------------------------- the runner's downscale
 
-    _image(20, 30, "RGB", seed=1).convert("CMYK").save(tmp_path / "k.jpg")
-    with pytest.raises(ValueError, match="only 8-bit gray or RGB.*CMYK"):
-        nerfstudio_runner._resized(tmp_path / "k.jpg", 15, 10)
+RUNNER_NAMES = list(chip_smoke.RUNNER_SOURCES)
+LOST_MODES = {"P": "RGB", "1": "L"}  # PIL keeps these modes; the port writes their pixels in these
+PIL_OPENS = {"RGB;16": "RGB", "RGBA;16": "RGBA", "LA;16": "RGBA"}  # the mode PIL opens 16-bit colour in
+
+
+def _pil_runner_sources(out):
+    """The runner sources, written by PIL (16-bit colour, which PIL cannot
+    write, by _png with every row filter)."""
+    out.mkdir()
+    paths = []
+    for name, (kind, _) in chip_smoke.RUNNER_SOURCES.items():
+        px = chip_smoke.runner_source(np, name)
+        if kind.endswith(";16") and kind != "I;16":
+            _png(out / name, px, 16, {"RGB;16": 2, "LA;16": 4, "RGBA;16": 6}[kind])
+        elif kind == "P":
+            img = Image.fromarray(px, "P")
+            img.putpalette([c for rgb in chip_smoke.RUNNER_PALETTE for c in rgb])
+            img.save(out / name)
+        else:
+            Image.fromarray(px, kind if kind in ("LA", "RGBA", "CMYK") else None).save(out / name)
+        paths.append(str(out / name))
+    return paths
+
+
+@pytest.fixture(scope="module")
+def runner_outputs(tmp_path_factory):
+    """Both runners' downscale of the runner sources, as the port writes
+    them and as PIL writes them: {writer: {"j"|"t": {name: frame}}}."""
+    from acezero_tpu.export import nerfstudio_runner as jrunner
+    from acezero_tpu_torch.export import nerfstudio_runner as trunner
+
+    root = tmp_path_factory.mktemp("runner")
+    sources = {"port": chip_smoke.write_runner_sources(np, root / "port_sources"),
+               "pil": _pil_runner_sources(root / "pil_sources")}
+    return {writer: {name: chip_smoke.runner_downscale(mod, paths, root / f"{writer}_{name}")
+                     for name, mod in (("j", jrunner), ("t", trunner))}
+            for writer, paths in sources.items()}
+
+
+@pytest.mark.parametrize("writer", ["port", "pil"])
+@pytest.mark.parametrize("name", RUNNER_NAMES)
+def test_runner_downscales_every_mode_as_pil(name, writer, runner_outputs):
+    """The port's runner against the JAX runner's PIL `resize(BILINEAR)` and
+    `save` of the same source: the same frame entry, JPEG bytes equal, PNG
+    mode and pixels equal under PIL, palette and 1-bit sources written as
+    their RGB and gray pixels (the recorded difference)."""
+    ft, fj = runner_outputs[writer]["t"][name], runner_outputs[writer]["j"][name]
+    assert {k: v for k, v in ft.items() if k != "file_path"} == {k: v for k, v in fj.items() if k != "file_path"}
+    got, want = Path(ft["file_path"]), Path(fj["file_path"])
+    assert got.name == want.name == name and got.parent.name == "images_downscaled"
+    assert max(ft["w"], ft["h"]) == 640
+    if name.endswith(".jpg"):
+        assert got.read_bytes() == want.read_bytes()
+        return
+    with Image.open(got) as g, Image.open(want) as w:
+        kind = chip_smoke.RUNNER_SOURCES[name][0]
+        assert w.mode == PIL_OPENS.get(kind, kind)  # PIL keeps the mode it opened the source in
+        mode = LOST_MODES.get(w.mode, w.mode)
+        assert g.mode == mode
+        assert np.array_equal(np.asarray(g), np.asarray(w.convert(mode) if w.mode in LOST_MODES else w))
+
+
+def test_runner_digests_are_pils_and_the_ports(tmp_path):
+    """tests/data/runner/pil_digests.json, which the card checks, holds the
+    JAX runner's (PIL's) results on the sources the port writes, and the
+    committed P and 1 fixtures are runner_source's pixels."""
+    import make_runner_fixtures
+
+    committed = json.loads((chip_smoke.RUNNER_FIXTURES / "pil_digests.json").read_text())
+    assert make_runner_fixtures.digests(tmp_path) == committed
+    assert sorted(committed) == sorted(RUNNER_NAMES)
+    for name in ("palette.png", "bilevel.png"):
+        with Image.open(chip_smoke.RUNNER_FIXTURES / name) as img:
+            assert img.mode == chip_smoke.RUNNER_SOURCES[name][0]
+            assert np.array_equal(np.asarray(img), chip_smoke.runner_source(np, name))
+        assert (chip_smoke.RUNNER_FIXTURES / name).stat().st_size < 1000
+    # the card's check, here: the port's downscale equals every digest
+    from acezero_tpu_torch.export import nerfstudio_runner as trunner
+
+    kinds = chip_smoke.runner_kinds_check(np, trunner, tmp_path / "card_check")
+    assert sorted(kinds) == sorted(RUNNER_NAMES) and all(c["equal_to_pil"] for c in kinds.values()), kinds
+
+
+@pytest.mark.parametrize("mode", ["RGBA", "LA", "I;16", "P"])
+def test_runner_raises_where_pil_cannot_save_a_jpeg(mode, tmp_path):
+    """A PNG source named .jpg, in a mode JPEG cannot hold: both runners
+    raise OSError when they save it."""
+    from acezero_tpu.export import nerfstudio_runner as jrunner
+    from acezero_tpu_torch.export import nerfstudio_runner as trunner
+
+    img = _image(30, 700, "RGB", seed=3)
+    img = img.quantize(16) if mode == "P" else img.convert("I;16" if mode == "I;16" else mode)
+    with open(tmp_path / "x.jpg", "wb") as f:
+        img.save(f, format="PNG")
+    for name, mod in (("j", jrunner), ("t", trunner)):
+        frame = {"file_path": str(tmp_path / "x.jpg"), "fl_x": 1.0, "fl_y": 1.0, "cx": 1.0, "cy": 1.0, "w": 700, "h": 30}
+        (tmp_path / f"{name}.json").write_text(json.dumps({"frames": [frame], "train_filenames": [], "test_filenames": []}))
+        (tmp_path / name).mkdir()
+        with pytest.raises(OSError, match=f"cannot write mode {mode} as JPEG"):
+            mod._downscale_images(tmp_path / f"{name}.json", tmp_path / name)
+
+
+@pytest.mark.parametrize("mode", ["RGBA", "LA"])
+def test_premultiply_round_trip_matches_pil_for_every_value_and_alpha(mode):
+    """pil_premultiply and pil_unpremultiply against PIL's conversions to
+    and from RGBa and La, over all 65,536 (value, alpha) pairs."""
+    v, a = (c.astype(np.uint8) for c in np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    img = np.stack([v, 255 - v, v // 3, a] if mode == "RGBA" else [v, a], -1)
+    premultiplied = mode[:-1] + "a"
+    assert np.array_equal(timg.pil_premultiply(img), np.asarray(Image.fromarray(img, mode).convert(premultiplied)))
+    back = np.asarray(Image.frombytes(premultiplied, (256, 256), img.tobytes()).convert(mode))
+    assert np.array_equal(timg.pil_unpremultiply(img), back)
+
+
+@pytest.mark.parametrize("hw,out_hw", [((37, 53), (20, 30)), ((100, 333), (17, 61)), ((64, 64), (64, 63)),
+                                       ((1000, 997), (333, 301)), ((9, 1), (4, 1))])
+def test_pil_resizes_of_other_modes_match_pil(hw, out_hw):
+    """pil_resize_bilinear of 16-bit gray (I;16, every byte clipped as
+    Pillow stores it) and pil_resize_nearest (modes P and 1) against PIL."""
+    rng = np.random.default_rng(sum(hw))
+    (h, w), (oh, ow) = hw, out_hw
+    g16 = rng.integers(0, 65536, (h, w)).astype(np.uint16)
+    g16[0] = 65535
+    want = np.asarray(Image.fromarray(g16).resize((ow, oh), Image.BILINEAR))
+    got = timg.pil_resize_bilinear(g16, oh, ow)
+    assert got.dtype == np.uint16 and np.array_equal(got, want)
+    pal = Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).quantize(32)
+    want = np.asarray(pal.resize((ow, oh), Image.BILINEAR).convert("RGB"))
+    assert np.array_equal(timg.pil_resize_nearest(np.asarray(pal.convert("RGB")), oh, ow), want)
+    bits = Image.fromarray(rng.integers(0, 2, (h, w)).astype(bool))
+    want = np.asarray(bits.resize((ow, oh), Image.BILINEAR).convert("L"))
+    assert np.array_equal(timg.pil_resize_nearest(np.asarray(bits.convert("L")), oh, ow), want)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (7, 9), (20, 30), (64, 80), (201, 301)])
+@pytest.mark.parametrize("quality", [50, 75, 95])
+def test_write_jpeg_of_cmyk_gives_pils_bytes(hw, quality, tmp_path):
+    """An (h, w, 4) image through write_jpeg: PIL's save of mode CMYK, byte
+    for byte, and read_jpeg gives PIL's decode of it."""
+    rng = np.random.default_rng(hw[0] * quality)
+    px = rng.integers(0, 256, (*hw, 4), dtype=np.uint8)
+    px[: hw[0] // 2] = np.asarray(_image(hw[0], hw[1], "RGB", seed=quality).convert("CMYK"))[: hw[0] // 2]
+    Image.fromarray(px, "CMYK").save(tmp_path / "pil.jpg", quality=quality)
+    tjpeg.write_jpeg(tmp_path / "port.jpg", px, quality)
+    assert (tmp_path / "port.jpg").read_bytes() == (tmp_path / "pil.jpg").read_bytes()
+    assert np.array_equal(tjpeg.read_jpeg(tmp_path / "port.jpg"), np.asarray(Image.open(tmp_path / "pil.jpg")))
+
+
+@pytest.mark.parametrize("dtype,channels", [(np.uint8, 1), (np.uint8, 2), (np.uint8, 3), (np.uint8, 4),
+                                            (np.uint16, 1), (np.uint16, 2), (np.uint16, 3), (np.uint16, 4)])
+def test_write_png_opens_in_pils_mode_with_its_pixels(dtype, channels, tmp_path):
+    """write_png's 8- and 16-bit gray, gray+alpha, RGB and RGBA: PIL opens
+    each as it opens PIL's own save (or the file of the 16-bit samples),
+    with its pixels, and pil_mode names that mode."""
+    rng = np.random.default_rng(channels)
+    px = rng.integers(0, np.iinfo(dtype).max + 1, (13, 17, channels)).astype(dtype)
+    px = px[..., 0] if channels == 1 else px
+    tpng.write_png(tmp_path / "port.png", px)
+    if dtype == np.uint8 or channels == 1:
+        Image.fromarray(px, {2: "LA", 4: "RGBA"}.get(channels)).save(tmp_path / "ref.png")
+    else:
+        _png(tmp_path / "ref.png", px, 16, {2: 4, 3: 2, 4: 6}[channels])
+    with Image.open(tmp_path / "port.png") as got, Image.open(tmp_path / "ref.png") as want:
+        assert got.mode == want.mode == tpng.pil_mode(tmp_path / "port.png")
+        assert np.array_equal(np.asarray(got), np.asarray(want))
+    assert np.array_equal(timg.read_png(tmp_path / "port.png"), px)
+
+
+@pytest.mark.parametrize("ctype,depth,interlace", PNG_CASES, ids=lambda v: str(v))
+def test_pil_mode_is_the_mode_pil_opens_a_png_in(ctype, depth, interlace, tmp_path):
+    p = _png_case(tmp_path, ctype, depth, interlace)
+    with Image.open(p) as img:
+        assert tpng.pil_mode(p) == img.mode
 
 
 def test_frame_colors_match_jax_on_jpeg_frames(tmp_path):
@@ -752,6 +925,7 @@ def test_host_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "HOST_FLAGS", build.HOST_FLAGS + ("-g",))
     assert build.host_target(tjpeg.SOURCE) != build.host_target(src)
     assert not any(f in build.HOST_FLAGS for f in ("-ffast-math", "-march=native"))
+    assert "-ffp-contract=off" in build.HOST_FLAGS  # no fused multiply-add in the canvas pass on any host
 
 
 def test_host_build_raises_without_a_compiler_or_on_an_error(tmp_path, monkeypatch):
