@@ -2,8 +2,10 @@
 
 Counterpart of acezero_tpu/data/depth.py. Depth maps seed the map through
 supervised scene coordinates, from one of the JAX package's plug points:
-  - depth files: float `.npy` arrays in metres, or integer PNGs (16-bit
-    depth maps) in millimetres;
+  - depth files: float `.npy` arrays in metres, or any image file that
+    `read_image` reads (a 16-bit PNG, TIFF or PGM in millimetres, a float
+    TIFF or PFM), its values divided by 1,000 as the JAX package divides
+    `np.asarray(Image.open(path))`, float images too;
   - any callable `(rgb_uint8 HxWx3) -> depth_m HxW`, such as
     `learned_depth_estimator` (the seed-depth head on the encoder, run on
     the card unless the CPU is asked for).
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from acezero_tpu_torch import resolve_device
-from acezero_tpu_torch.data.images import GRAY_MEAN, GRAY_STD, pil_luma_u8, read_png
+from acezero_tpu_torch.data.images import GRAY_MEAN, GRAY_STD, pil_array, pil_luma_u8, read_image
 from acezero_tpu_torch.geometry.projection import OUTPUT_SUBSAMPLE
 
 DepthEstimator = Callable[[np.ndarray], np.ndarray]
@@ -30,11 +32,13 @@ DepthEstimator = Callable[[np.ndarray], np.ndarray]
 
 def load_depth_file(path: str | Path) -> np.ndarray:
     """A depth map in metres (float64): a `.npy` array as it is, an image
-    (a 16-bit PNG) read as millimetres."""
+    read as millimetres: its values (`pil_array`, as `np.asarray` of PIL's
+    image) divided by 1,000, also where they are floats already in metres,
+    as the JAX package does."""
     p = str(path)
     if p.endswith(".npy"):
         return np.load(p).astype(np.float64)
-    return read_png(p).astype(np.float64) / 1000.0
+    return pil_array(read_image(p)).astype(np.float64) / 1000.0
 
 
 def _nearest_index(n_in: int, n_out: int) -> np.ndarray:

@@ -1,13 +1,19 @@
 """Host-side image decode onto static grayscale canvases.
 
 Counterpart of acezero_tpu/data/images.py, without PIL. `read_image`
-decodes a PNG or a JPEG by its signature. PNG files decode with `zlib` and
+decodes an image file by its signature to the pixels
+`np.asarray(Image.open(path))` gives. PNG files decode with `zlib` and
 numpy: gray at bit depths 1, 2, 4, 8 and 16, palette, gray+alpha, RGB and
-RGBA, all five row filters, Adam7 interlacing; a palette image becomes RGB
-and 1-, 2- and 4-bit gray is scaled to 8 bits, as PIL gives them to the JAX
-package. JPEG files decode in io/csrc/jpeg.cpp (io/jpeg.py) to PIL's own
-pixels; a four-component JPEG comes back as a `CmykImage`, so its mode
-travels with it. Anything else raises ValueError naming the file.
+RGBA, all five row filters, Adam7 interlacing; 2- and 4-bit gray is scaled
+to 8 bits as PIL's modes give it (`read_png` also turns a palette image to
+RGB and 1-bit gray to 0/255). JPEG files decode in io/csrc/jpeg.cpp
+(io/jpeg.py) to PIL's own pixels; a four-component JPEG comes back as a
+`CmykImage`, so its mode travels with it. PNG, TIFF (io/tiff.py), BMP
+(io/bmp.py) and Netpbm/PFM (io/pnm.py) files decode to an array whose
+dtype tells PIL's mode (bool 1, uint8 L, LA, RGB or RGBA, uint16 I;16,
+int32 I, float32 F), a `CmykImage`, or a `ModeImage` where it does not (P
+with its palette, I;16B). Anything else raises ValueError naming the
+file.
 
 Each image is turned to ITU-R 601 luma, resized so its short side matches
 `short_size`, and centred on a canvas shared by the whole set, rounded up
@@ -15,9 +21,12 @@ to a multiple of 8, by the host canvas pass (data/csrc/canvas.cpp through
 data/native.py): float32 luma, an area average when shrinking, bilinear
 when enlarging, +0.5 and truncation to uint8 — the JAX package's canvases
 bit for bit. The pass takes what `canvas_input` makes of the decoded
-image, which is what the JAX package hands to its own: 16-bit images as
-PIL makes them 8-bit (`pil_uint8`), RGB for gray+alpha, RGBA and CMYK.
-`gray_resize` is the pass's plain numpy version, for the tests.
+image, which is what the JAX package's `_load_raw` hands to its own: modes
+1, I, I;16 and F through `convert("L")` (clipped to 0-255, F truncated),
+every other mode but L and RGB through `convert("RGB")` (16-bit colour as
+its high bytes, I;16B clipped and replicated, P through its palette, alpha
+dropped, CMYK as Pillow's cmyk2rgb). `gray_resize` is the pass's plain
+numpy version, for the tests.
 `decode_to_canvas` reads the sizes from the files' headers, fixes the
 canvas, then decodes, resizes and places each image in one worker task, so
 at most `num_workers` decoded images are held at once (the JAX package
@@ -28,7 +37,7 @@ path instead: `pil_luma_u8`, `pil_resize_bilinear` and a centre crop.
 The colour paths that the JAX package runs through PIL are reproduced
 exactly: `read_rgb` and `pil_rgb` (`convert("RGB")`, CMYK included),
 `pil_luma_u8` (`convert("L")`, Pillow's integer luma) and
-`pil_resize_bilinear` (`resize(BILINEAR)`).
+`pil_resize_bilinear` (`resize(BILINEAR)`, also of modes I and F).
 
 `decode_to_canvas(cache_dir=...)` keeps decoded canvases in a cache keyed
 by the files' path, size and mtime_ns and the decode parameters, as the JAX
@@ -56,8 +65,10 @@ from pathlib import Path
 import numpy as np
 
 from acezero_tpu_torch.data import native
+from acezero_tpu_torch.io import bmp, formats, pnm, tiff
+from acezero_tpu_torch.io.formats import PNG_SIGNATURE as _PNG_SIGNATURE
+from acezero_tpu_torch.io.formats import image_size
 from acezero_tpu_torch.io.jpeg import read_jpeg
-from acezero_tpu_torch.io.png import image_size
 
 # Grayscale normalization statistics (reference dataset.py:150-153).
 GRAY_MEAN = 0.4
@@ -65,11 +76,9 @@ GRAY_STD = 0.25
 
 _logger = logging.getLogger(__name__)
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_JPEG_SIGNATURE = b"\xff\xd8"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # bit depths PNG allows
-_GRAY_SCALE = {1: 255, 2: 85, 4: 17}  # PIL's modes 1 (to 0/255 by convert("L")), L;2 and L;4
+_GRAY_SCALE = {2: 85, 4: 17}  # PIL's raw modes L;2 and L;4
 # Adam7 passes: first column, first row, column step, row step
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
@@ -157,6 +166,17 @@ def read_png(path) -> np.ndarray:
     RGBA; uint8 at bit depth 8 or less, uint16 at 16. A palette image comes
     out as (h, w, 3) RGB (its transparency dropped), and 1-, 2- and 4-bit
     gray scaled to 8 bits (0/255, x85, x17), as PIL's modes give them."""
+    img, palette = _read_png_samples(path)
+    if palette is not None:
+        return palette_rgb(ModeImage(img, "P", palette))
+    return np.where(img, 255, 0).astype(np.uint8) if img.dtype == bool else img
+
+
+def _read_png_samples(path) -> tuple[np.ndarray, np.ndarray | None]:
+    """Decode a PNG to `np.asarray(Image.open(path))` and its palette: a
+    palette image's (h, w) uint8 indices and its (n, 3) uint8 PLTE colours,
+    1-bit gray as bool, 2- and 4-bit gray scaled to 8 bits (x85, x17);
+    every other kind as `read_png` gives it, palette None."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_PNG_SIGNATURE):
@@ -204,13 +224,12 @@ def read_png(path) -> np.ndarray:
         if off != len(raw):
             raise ValueError(f"{path}: PNG image data has {len(raw)} bytes, expected {off}")
     if ctype == 3:
-        lut = np.zeros((256, 3), np.uint8)  # entries past the palette's end are black
-        entries = np.frombuffer(palette[: len(palette) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
-        lut[: len(entries)] = entries
-        return lut[img[..., 0]]
+        return img[..., 0], np.frombuffer(palette[: len(palette) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
+    if ctype == 0 and depth == 1:
+        return img[..., 0] != 0, None
     if ctype == 0 and depth < 8:
-        return (img[..., 0] * _GRAY_SCALE[depth]).astype(np.uint8)
-    return img[..., 0] if channels == 1 else img
+        return (img[..., 0] * _GRAY_SCALE[depth]).astype(np.uint8), None
+    return (img[..., 0] if channels == 1 else img), None
 
 
 @dataclass(frozen=True, eq=False)
@@ -228,29 +247,78 @@ class CmykImage:
         return self.pixels.shape
 
 
-def read_image(path) -> "np.ndarray | CmykImage":
-    """Decode a PNG (`read_png`) or a JPEG (io/jpeg.py::read_jpeg), told
-    apart by the file's signature; a four-component JPEG comes back as a
-    `CmykImage`. Anything else raises ValueError."""
-    with open(path, "rb") as f:
-        head = f.read(len(_PNG_SIGNATURE))
-    if head.startswith(_PNG_SIGNATURE):
-        return read_png(path)
-    if head.startswith(_JPEG_SIGNATURE):
+@dataclass(frozen=True, eq=False)
+class ModeImage:
+    """A decoded image whose PIL mode its array does not tell: mode "P"
+    (`pixels` the (h, w) uint8 palette indices, `palette` the (n, 3) uint8
+    colours; an index past the palette is black, as Pillow makes it) or
+    "I;16B" (`pixels` the (h, w) uint16 values, which `np.asarray` of PIL's
+    image gives as big-endian uint16)."""
+
+    pixels: np.ndarray
+    mode: str
+    palette: np.ndarray | None = None
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return self.pixels.shape
+
+
+def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
+    """Decode a PNG (`read_png`), JPEG (io/jpeg.py::read_jpeg), TIFF, BMP or
+    Netpbm/PFM file, told apart by its signature (module note). Anything
+    else raises ValueError."""
+    kind = formats.file_kind(path)
+    if kind == "png":
+        img, palette = _read_png_samples(path)
+        return img if palette is None else ModeImage(img, "P", palette)
+    if kind == "jpeg":
         img = read_jpeg(path)
         return CmykImage(img) if img.ndim == 3 and img.shape[2] == 4 else img
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    if kind in ("tiff", "bmp", "pnm"):
+        r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm}[kind](path)
+        if r.mode == "CMYK":
+            return CmykImage(r.pixels)
+        if r.mode in ("P", "I;16B"):
+            return ModeImage(r.pixels, r.mode, r.palette)
+        return r.pixels
+    raise ValueError(formats.refusal(path))
+
+
+def pil_array(img) -> np.ndarray:
+    """`np.asarray` of the PIL image a decoded image stands for: the array
+    itself, a `CmykImage`'s pixels, a mode-P image's indices, an I;16B
+    image's values as big-endian uint16."""
+    if isinstance(img, CmykImage):
+        return img.pixels
+    if isinstance(img, ModeImage):
+        return img.pixels.astype(">u2") if img.mode == "I;16B" else img.pixels
+    return np.asarray(img)
+
+
+def palette_rgb(img: ModeImage) -> np.ndarray:
+    """(h, w, 3) uint8: a mode-P image through its palette (PIL's
+    `convert("RGB")`), indices past the palette black."""
+    lut = np.zeros((256, 3), np.uint8)
+    pal = np.asarray(img.palette, np.uint8).reshape(-1, 3)[:256]
+    lut[: len(pal)] = pal
+    return lut[img.pixels]
 
 
 def pil_uint8(img):
-    """The 8-bit image PIL works with for a decoded PNG: 16-bit gray opens
-    as mode I;16 and converts to 8 bits by clipping at 255; 16-bit colour
-    opens as 8-bit RGB(A) from each sample's high byte. 8-bit images and
-    `CmykImage`s come back as they are."""
+    """The 8-bit image PIL's conversions work from: 16-bit gray (I;16 and
+    I;16B), I (int32) and F (float32) clipped to 0-255 (F truncated), as
+    `convert("L")` makes them; mode 1 as 0 and 255; 16-bit colour (a PNG's)
+    as each sample's high byte, as PIL opens it; mode P through its palette
+    (`palette_rgb`). 8-bit images and `CmykImage`s come back as they are."""
+    if isinstance(img, ModeImage):
+        return palette_rgb(img) if img.mode == "P" else np.minimum(img.pixels, 255).astype(np.uint8)
     if isinstance(img, CmykImage) or img.dtype == np.uint8:
         return img
+    if img.dtype == bool:
+        return np.where(img, 255, 0).astype(np.uint8)
     if img.ndim == 2:
-        return np.minimum(img, 255).astype(np.uint8)
+        return np.clip(img, 0, 255).astype(np.uint8)
     return (img >> 8).astype(np.uint8)
 
 
@@ -264,6 +332,8 @@ def pil_rgb(img) -> np.ndarray:
     gray+alpha and RGBA drop alpha (no compositing), and CMYK becomes
     Pillow's cmyk2rgb: R = (255 - K) - C (255 - K) / 255, the product
     rounded as its MULDIV255 rounds it, G and B likewise from M and Y."""
+    if isinstance(img, ModeImage):
+        return pil_rgb(pil_uint8(img))
     if isinstance(img, CmykImage):
         px = img.pixels.astype(np.int32)
         nk = 255 - px[..., 3:]
@@ -278,16 +348,16 @@ def pil_rgb(img) -> np.ndarray:
 
 def read_rgb(path) -> np.ndarray:
     """(h, w, 3) uint8, as PIL's `Image.open(path).convert("RGB")`
-    (`pil_rgb`); a PNG or a JPEG."""
+    (`pil_rgb` of `pil_uint8`), of any file `read_image` reads."""
     return pil_rgb(pil_uint8(read_image(path)))
 
 
 def pil_luma_u8(img) -> np.ndarray:
-    """PIL's `convert("L")` of an 8-bit image: Pillow's integer ITU-R 601
-    luma (R 19595 + G 38470 + B 7471 + 0x8000) >> 16 for RGB(A), the gray
-    channel for gray(+alpha), the luma of `pil_rgb` for CMYK (which is what
-    Pillow gives)."""
-    img = pil_rgb(img) if isinstance(img, CmykImage) else pil_uint8(np.asarray(img))
+    """PIL's `convert("L")` of a decoded image: Pillow's integer ITU-R 601
+    luma (R 19595 + G 38470 + B 7471 + 0x8000) >> 16 for RGB(A) and P, the
+    gray channel for gray(+alpha), `pil_uint8` of the numeric gray modes,
+    the luma of `pil_rgb` for CMYK (which is what Pillow gives)."""
+    img = pil_rgb(img) if isinstance(img, CmykImage) else pil_uint8(img)
     if img.ndim == 2:
         return img
     if img.shape[-1] == 2:
@@ -323,15 +393,22 @@ def _pil_bilinear_weights(n_in: int, n_out: int):
 def _pil_resample_axis0(img: np.ndarray, n_out: int) -> np.ndarray:
     """One pass of Pillow's resample along axis 0: for 8-bit samples the
     weights in fixed point (`normalize_coeffs_8bpc`) and an integer sum,
-    for 16-bit gray (mode I;16) a double sum rounded half up."""
+    for 16-bit gray (modes I;16, I;16B) a double sum rounded half up, each
+    byte clipped as Pillow stores it, for modes I (int32) and F (float32) a
+    double sum, rounded half away from zero for I (ROUND_UP), cast to
+    float32 for F."""
     xmin, w = _pil_bilinear_weights(img.shape[0], n_out)
     src = np.minimum(xmin[:, None] + np.arange(w.shape[1])[None, :], img.shape[0] - 1)  # zero weight past the end
     shape = (-1,) + (1,) * (img.ndim - 1)
-    if img.dtype == np.uint16:
+    if img.dtype in (np.uint16, np.int32, np.float32):
         acc = np.zeros((n_out,) + img.shape[1:])
         for x in range(w.shape[1]):
             acc += img[src[:, x]] * w[:, x].reshape(shape)
-        v = np.floor(acc + 0.5).astype(np.int64)
+        if img.dtype == np.float32:
+            return acc.astype(np.float32)
+        v = np.where(acc >= 0, np.floor(acc + 0.5), -np.floor(np.abs(acc) + 0.5)).astype(np.int64)
+        if img.dtype == np.int32:
+            return v.astype(np.int32)
         return (np.minimum(v >> 8, 255) << 8 | (v & 255)).astype(np.uint16)  # each byte clipped, as Pillow stores it
     k = np.where(w < 0, np.trunc(-0.5 + w * (1 << _PRECISION_BITS)), np.trunc(0.5 + w * (1 << _PRECISION_BITS)))
     k = k.astype(np.int64)
@@ -343,13 +420,14 @@ def _pil_resample_axis0(img: np.ndarray, n_out: int) -> np.ndarray:
 
 def pil_resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """PIL's `Image.fromarray(img).resize((out_w, out_h), BILINEAR)` of an
-    8-bit (h, w) or (h, w, c) image, each channel on its own, or of a 16-bit
-    gray (h, w) image (mode I;16): a horizontal pass into rows of the
-    image's type, then a vertical pass, each a triangle filter; the same
-    size is a copy."""
+    8-bit (h, w) or (h, w, c) image, each channel on its own, or of a
+    16-bit gray (mode I;16 or I;16B), int32 (mode I) or float32 (mode F)
+    (h, w) image: a horizontal pass into rows of the image's type, then a
+    vertical pass, each a triangle filter; the same size is a copy."""
     out = np.asarray(img)
-    if not (out.dtype == np.uint8 or (out.dtype == np.uint16 and out.ndim == 2)):
-        raise ValueError(f"pil_resize_bilinear takes uint8 images or uint16 (h, w), got {out.dtype} {out.shape}")
+    if not (out.dtype == np.uint8 or (out.dtype in (np.uint16, np.int32, np.float32) and out.ndim == 2)):
+        raise ValueError(f"pil_resize_bilinear takes uint8 images or uint16, int32 or float32 (h, w), "
+                         f"got {out.dtype} {out.shape}")
     h, w = out.shape[:2]
     if w != out_w:
         out = _pil_resample_axis0(out.swapaxes(0, 1), out_w).swapaxes(0, 1)
@@ -400,10 +478,14 @@ def pil_resize_nearest(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 
 def canvas_input(img) -> np.ndarray:
     """The uint8 gray (h, w) or RGB (h, w, 3) image that the canvas pass
-    takes, as the JAX package's `_load_raw` hands it over: 16-bit images as
-    PIL makes them 8-bit (`pil_uint8`), gray+alpha and RGBA through
-    `convert("RGB")` (alpha dropped, gray replicated), CMYK through
-    `pil_rgb`; gray and RGB as they are."""
+    takes, as the JAX package's `_load_raw` hands it over: modes 1, I, I;16
+    and F gray through `convert("L")` (`pil_uint8`); every other mode but L
+    and RGB through `convert("RGB")`: 16-bit colour as its high bytes,
+    I;16B clipped and replicated, P through its palette, gray+alpha and
+    RGBA with alpha dropped, CMYK through `pil_rgb`; gray and RGB as they
+    are."""
+    if isinstance(img, ModeImage) and img.mode == "I;16B":
+        return pil_rgb(pil_uint8(img))
     img = pil_uint8(img)
     if isinstance(img, CmykImage) or (img.ndim == 3 and img.shape[2] != 3):
         return pil_rgb(img)
@@ -596,7 +678,7 @@ def decode_to_canvas(
     num_workers: int = 16,
     cache_dir=None,
 ) -> DecodedImages:
-    """Decode all images (PNG or JPEG) and centre them on one shared canvas
+    """Decode all images (any file `read_image` reads) and centre them on one shared canvas
     (by default the largest resized extent, rounded up to a multiple of 8);
     at most `num_workers` decoded images are held at once. With `cache_dir`
     the canvases are read from, or written to, the decode cache (module

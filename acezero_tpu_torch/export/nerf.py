@@ -2,7 +2,7 @@
 
 Counterpart of acezero_tpu/export/nerf.py (the reference benchmark
 preprocessing, benchmarks/preprocess_data.py), with the frame size read by
-io/png.py::image_size instead of PIL:
+io/formats.py::image_size (any image file the port reads) instead of PIL:
   - w2c pose-file entries -> OpenGL (Blender) cam-to-world matrices
     (y/z axis flip applied in camera frame);
   - every globbed frame appears in `frames` even without a pose (identity
@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from acezero_tpu_torch.io.png import image_size
+from acezero_tpu_torch.io.formats import image_size
 from acezero_tpu_torch.io.pose_files import PoseFileEntry, read_pose_file
 
 _logger = logging.getLogger(__name__)

@@ -9,19 +9,32 @@ external dependency that this module never installs; without its CLIs it
 raises RuntimeError naming the missing one.
 
 The downscale is what the JAX runner's `Image.open(src).resize(size,
-BILINEAR)` gives for a PNG or JPEG source, in the mode PIL opens it in
-(io/png.py::pil_mode), written under the source's name as its
-`img.save(dst)` writes it: a PNG by io/png.py (PIL's mode and pixels, other
-bytes), a JPEG by io/jpeg.py (PIL's default quality 75 and sampling, PIL's
-bytes). Modes L, RGB and CMYK take Pillow's 8-bit bilinear resize
-(data/images.py::pil_resize_bilinear), I;16 (16-bit gray) its 16-bit one;
-LA and RGBA are premultiplied by alpha, resized and unpremultiplied, as
-Pillow does; 16-bit colour is first made 8-bit as PIL opens it
-(`pil_uint8`). Modes P and 1 take Pillow's nearest-neighbour resize, on the
-pixels read_png gives them: a palette PNG comes out as RGB, a 1-bit one as
-8-bit gray of 0 and 255, where PIL keeps the palette and the 1-bit mode
-(the same pixels after PIL's `convert("RGB")` or `convert("L")`). A mode
-JPEG cannot hold raises OSError, as PIL's save does.
+BILINEAR)` gives for any source the port reads, in the mode PIL opens it in
+(io/formats.py::pil_mode), written under the source's name as its
+`img.save(dst)` writes it, the format picked by the suffix: a JPEG by
+io/jpeg.py (PIL's default quality 75 and sampling, PIL's bytes), a TIFF by
+io/tiff.py (uncompressed, as PIL's default), a BMP by io/bmp.py (PIL's
+bytes), a PBM/PGM/PPM/PFM by io/pnm.py (PIL's bytes), a PNG by io/png.py
+(PIL's mode and pixels, other bytes). Modes L, RGB and CMYK take Pillow's
+8-bit bilinear resize (data/images.py::pil_resize_bilinear), I;16 and
+I;16B its 16-bit one (I;16B's bytes taken in the wrong order, as Pillow
+takes them on a little-endian host), I and F its 32-bit one; LA and RGBA are
+premultiplied by alpha, resized and unpremultiplied, as Pillow does;
+16-bit colour is first made 8-bit as PIL opens it (`pil_uint8`). Modes P
+and 1 take Pillow's nearest-neighbour resize, on the palette indices or
+booleans of a TIFF or BMP (the palette kept), and on the pixels read_png
+gives a PNG: a palette PNG comes out as RGB, a 1-bit one as 8-bit gray of
+0 and 255, where PIL keeps the palette and the 1-bit mode (the same pixels
+after PIL's `convert("RGB")` or `convert("L")`). A mode the format cannot
+hold raises OSError, as PIL's save does.
+
+PIL's save of a TIFF it opened keeps the source's compression. The port
+writes every TIFF uncompressed, which PIL reads back to the same mode and
+pixels but in two cases: an I;16B image that libtiff writes (the source
+LZW, Deflate or PackBits) reads back as I;16, so the port writes I;16
+there; and a JPEG-compressed source, which PIL compresses again with
+libtiff's JPEG encoder, loses what that loses, and the port's uncompressed
+file keeps it (ROADMAP.md records the difference).
 """
 
 from __future__ import annotations
@@ -36,6 +49,9 @@ from pathlib import Path
 import numpy as np
 
 from acezero_tpu_torch.data.images import (
+    CmykImage,
+    ModeImage,
+    pil_array,
     pil_premultiply,
     pil_resize_bilinear,
     pil_resize_nearest,
@@ -44,8 +60,12 @@ from acezero_tpu_torch.data.images import (
     read_image,
 )
 from acezero_tpu_torch.export.nerf import export_transforms_json
+from acezero_tpu_torch.io import tiff
+from acezero_tpu_torch.io.bmp import write_bmp
+from acezero_tpu_torch.io.formats import image_size, pil_mode
 from acezero_tpu_torch.io.jpeg import write_jpeg
-from acezero_tpu_torch.io.png import image_size, pil_mode, write_png
+from acezero_tpu_torch.io.png import write_png
+from acezero_tpu_torch.io.pnm import write_pnm
 
 _logger = logging.getLogger(__name__)
 
@@ -54,6 +74,9 @@ MAX_IMAGE_SIDE = 640  # reference auto-downscales to <=640 px
 PRELOAD_MAX_FRAMES = 3500  # preload-to-GPU heuristic, run_benchmark.py:244-252
 JPEG_SUFFIXES = (".jpg", ".jpeg", ".jpe", ".jfif")  # PIL picks the format to save by the name
 JPEG_MODES = ("1", "L", "RGB", "CMYK")  # the modes that PIL saves as JPEG (1 as gray of 0 and 255)
+TIFF_SUFFIXES = (".tif", ".tiff")
+PNM_SUFFIXES = (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")
+_LIBTIFF_WRITES = (tiff.LZW, tiff.PACKBITS, *tiff.DEFLATE)  # compressions PIL's save hands to libtiff
 
 
 @dataclass
@@ -75,33 +98,48 @@ def _require_cli(name: str) -> str:
     return path
 
 
-def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str]:
-    """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)` of a PNG or
-    JPEG: its pixels (module note) and the mode PIL opened the file in."""
+def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.ndarray | None]:
+    """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)`: its pixels
+    (module note), the mode PIL opened the file in, and the palette of a
+    mode-P TIFF or BMP (None otherwise)."""
     mode = pil_mode(src)
     img = read_image(src)
+    palette = img.palette if isinstance(img, ModeImage) else None
     if mode in ("P", "1"):  # Pillow resizes these nearest-neighbour whatever filter is asked for
-        return pil_resize_nearest(img, new_h, new_w), mode
-    if mode == "CMYK":
+        return pil_resize_nearest(pil_array(img), new_h, new_w), mode, palette
+    if mode == "I;16B":  # Pillow resamples the big-endian samples as little-endian ones
+        out = pil_resize_bilinear(img.pixels.byteswap(), new_h, new_w).byteswap()
+        if src.suffix.lower() in TIFF_SUFFIXES and tiff.tiff_compression(src) in _LIBTIFF_WRITES:
+            mode = "I;16"  # libtiff's file of it reads back as I;16
+        return out, mode, None
+    if isinstance(img, CmykImage):
         img = img.pixels
-    elif mode != "I;16":  # I;16 resizes in 16 bits, 16-bit colour opens as 8-bit
+    elif mode not in ("I;16", "I", "F"):  # 16-bit colour opens as 8-bit
         img = pil_uint8(img)
     if mode == "RGBA" and img.shape[2] == 2:  # 16-bit gray+alpha opens as RGBA
         img = img[..., [0, 0, 0, 1]]
     if mode in ("LA", "RGBA"):
-        return pil_unpremultiply(pil_resize_bilinear(pil_premultiply(img), new_h, new_w)), mode
-    return pil_resize_bilinear(img, new_h, new_w), mode
+        return pil_unpremultiply(pil_resize_bilinear(pil_premultiply(img), new_h, new_w)), mode, None
+    return pil_resize_bilinear(img, new_h, new_w), mode, None
 
 
-def _save(dst: Path, img: np.ndarray, mode: str) -> None:
+def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = None) -> None:
     """PIL's `img.save(dst)` of an image of `mode`, its format picked by the
-    name: a JPEG for the JPEG suffixes, a PNG otherwise."""
-    if dst.suffix.lower() in JPEG_SUFFIXES:
+    name: a JPEG, TIFF, BMP or PBM/PGM/PPM/PFM for their suffixes, a PNG
+    otherwise."""
+    suffix = dst.suffix.lower()
+    if suffix in JPEG_SUFFIXES:
         if mode not in JPEG_MODES:
             raise OSError(f"cannot write mode {mode} as JPEG")
         write_jpeg(dst, img)
+    elif suffix in TIFF_SUFFIXES:
+        tiff.write_tiff(dst, img, mode, palette)
+    elif suffix == ".bmp":
+        write_bmp(dst, img, mode, palette)
+    elif suffix in PNM_SUFFIXES:
+        write_pnm(dst, img, mode)
     else:
-        write_png(dst, img)
+        write_png(dst, img, palette)
 
 
 def _downscale_images(transforms_path: Path, workdir: Path) -> None:

@@ -410,6 +410,7 @@ struct Decoder {
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
+  int space3 = -1;  // three components: -1 libjpeg's guess, 0 no colour transform, 1 YCbCr
   bool frame = false, progressive = false, arith = false, lossless = false, eoi = false;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0;
   Component comp[4];
@@ -1051,6 +1052,7 @@ struct Decoder {
   Space color_space() const {
     if (ncomp == 1) return Space::kGray;
     if (ncomp == 4) return adobe && adobe_transform != 0 ? Space::kYCCK : Space::kCMYK;
+    if (space3 >= 0) return space3 == 1 ? Space::kYCbCr : Space::kRGB;  // set by the caller (a TIFF's photometric)
     if (jfif) return Space::kYCbCr;
     if (adobe) return adobe_transform == 0 ? Space::kRGB : Space::kYCbCr;
     if (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B') return Space::kRGB;
@@ -1668,10 +1670,14 @@ int acz_jpeg_header(const uint8_t* data, size_t size, int32_t* hwc, char* err, i
   return 1;
 }
 
-// decode into `out`, which holds height * width * components bytes
-int acz_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err, int errlen) {
+// decode into `out`, which holds height * width * components bytes; for
+// three components `space3` overrides libjpeg's colour-space guess: 0 no
+// colour transform, 1 YCbCr -> RGB, -1 the guess (as acz_jpeg_decode)
+int acz_jpeg_decode_space(const uint8_t* data, size_t size, int space3, uint8_t* out, size_t out_size, char* err,
+                          int errlen) {
   try {
     Decoder dec(data, size);
+    dec.space3 = space3;
     dec.parse(false);
     if (out_size != static_cast<size_t>(dec.height) * dec.width * dec.ncomp)
       fail("output buffer of %zu bytes for a %dx%dx%d image", out_size, dec.height, dec.width, dec.ncomp);
@@ -1683,6 +1689,11 @@ int acz_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_s
     set_error(err, errlen, std::string("JPEG decode failed: ") + e.what());
   }
   return 1;
+}
+
+// decode into `out`, which holds height * width * components bytes
+int acz_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err, int errlen) {
+  return acz_jpeg_decode_space(data, size, -1, out, out_size, err, errlen);
 }
 
 // encode an (h, w, c) uint8 image, c 1 (gray), 3 (RGB) or 4 (CMYK, as PIL

@@ -41,8 +41,8 @@ def _lib() -> ctypes.CDLL:
     p, n, err, i = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int
     lib.acz_jpeg_header.argtypes = [p, n, p, err, i]
     lib.acz_jpeg_header.restype = i
-    lib.acz_jpeg_decode.argtypes = [p, n, p, n, err, i]
-    lib.acz_jpeg_decode.restype = i
+    lib.acz_jpeg_decode_space.argtypes = [p, n, i, p, n, err, i]
+    lib.acz_jpeg_decode_space.restype = i
     lib.acz_jpeg_encode.argtypes = [p, i, i, i, i, i, p, n, err, i]
     lib.acz_jpeg_encode.restype = ctypes.c_int64
     return lib
@@ -59,18 +59,26 @@ def jpeg_shape(data: np.ndarray, path) -> tuple[int, ...]:
     return (h, w) if c == 1 else (h, w, c)
 
 
+def decode_jpeg(data: np.ndarray, path, space3: int = -1) -> np.ndarray:
+    """Decode the JPEG held in `data` (uint8) as `read_jpeg` does; `path`
+    names it in errors. For three components `space3` overrides libjpeg's
+    colour-space guess: 0 takes the samples as RGB, 1 as YCbCr (a TIFF's
+    photometric interpretation decides it, io/tiff.py)."""
+    out = np.empty(jpeg_shape(data, path), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_BYTES)
+    if _lib().acz_jpeg_decode_space(data.ctypes.data, data.size, int(space3), out.ctypes.data, out.nbytes, err,
+                                    _ERR_BYTES):
+        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
+    return out
+
+
 def read_jpeg(path) -> np.ndarray:
     """Decode a JPEG file as PIL opens it: (h, w) uint8 for mode L (one
     component), (h, w, 3) uint8 for mode RGB (three, YCbCr or RGB), (h, w, 4)
     uint8 for mode CMYK (four, CMYK or YCCK; Adobe's inverted convention
     undone, as PIL's "CMYK;I" does). data/images.py::read_image keeps the
     last apart from RGBA."""
-    data = np.fromfile(path, np.uint8)
-    out = np.empty(jpeg_shape(data, path), np.uint8)
-    err = ctypes.create_string_buffer(_ERR_BYTES)
-    if _lib().acz_jpeg_decode(data.ctypes.data, data.size, out.ctypes.data, out.nbytes, err, _ERR_BYTES):
-        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
-    return out
+    return decode_jpeg(np.fromfile(path, np.uint8), path)
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> bytes:

@@ -12,9 +12,10 @@ it ends, with its wall seconds; the first failure raises and ends the run.
 Phases:
   0 device    the card, its power limit, the torch/CUDA versions
   1 build     nvcc builds every kernel of the paths from csrc/, in parallel,
-              and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp)
-              and the canvas pass (data/csrc/canvas.cpp), with the
-              compiler's version and seconds
+              and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp),
+              the canvas pass (data/csrc/canvas.cpp) and the TIFF and BMP
+              codecs (io/csrc/tiff.cpp), with the compiler's version and
+              seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
               events, median) and resources: K1 (head chain forward) and K2
@@ -26,13 +27,30 @@ Phases:
   4 slice     the register CLI end to end on the 60 frames at 480x640 with
               the shipped encoder and head; kernel launch counts are zeroed
               just before and read just after
-  5 mapping   the train CLI end to end on the 60 frames and their shipped
+  5 formats   TIFF, BMP and Netpbm/PFM (io/tiff.py, io/bmp.py, io/pnm.py
+              and the host codecs of io/csrc/tiff.cpp): the committed
+              fixtures (every kind the port reads) decode to PIL's arrays and
+              modes (tests/data/formats/pil_digests.json), read_rgb to PIL's
+              convert("RGB"), decode_to_canvas over all of them to the JAX
+              package's canvases (default and cropped), load_depth_file of
+              the depth fixtures to the JAX package's; then the 60 frames as
+              TIFF (FORMAT_TIFF_KINDS in turn) and their depth as 16-bit
+              PNG, TIFF and PGM: the canvases and depth maps equal the PNG
+              glob's, the register CLI (K1) gives the PNG glob's poses
+              (phase slice's run, where it ran) and a FORMAT_TRAIN run of the train CLI (K1, K2) the same map bits,
+              counts zeroed just before each run and read just after; then
+              FORMAT_PHOTO_FRAMES frames of JPEG_PHOTO_HW as raw and as
+              Deflate + predictor 2 TIFFs: read_tiff's ms, decode_to_canvas
+              with each of JPEG_WORKERS, the four runs in turn in one fresh
+              process (ms per image, peak RSS growth; the same canvases for
+              both kinds)
+  6 mapping   the train CLI end to end on the 60 frames and their shipped
               poses at full width (batch 5,120, 614,400 buffer rows): the
               pipeline's mapping recipe, then the same schedule with the
               poses held fixed, counts zeroed just before each run and read
               just after; then the register CLI relocalizes the 60 frames
               against the fixed-pose map
-  6 loopclose loop closure (loop_close_entries) at full width on the 60
+  7 loopclose loop closure (loop_close_entries) at full width on the 60
               frames at their shipped poses against the fixed-pose map of
               phase mapping (a shorter one is trained when mapping did not
               run): coordinate maps and features (K1), the pairwise Sim(3)
@@ -44,11 +62,11 @@ Phases:
               drifted maps of 16 frames (every fit and correction must
               agree) and on the card's maps and features of a 16-frame
               subgraph (the same edges; LOOPCLOSE_TOL_*)
-  7 profile   where a mapping step's time goes, for each mapping run's
+  8 profile   where a mapping step's time goes, for each mapping run's
               configuration: host ms per step over 30 unprofiled steps, then
               device ms, kernels and the top device ops per step over 30
               steps under torch.profiler
-  8 pipeline  the reconstruction CLI (acezero_tpu_torch.cli.ace_zero_cli,
+  9 pipeline  the reconstruction CLI (acezero_tpu_torch.cli.ace_zero_cli,
               loop closure on) end to end on the 60 frames with their depth
               files at full width and cut budgets (PIPELINE_CUTS): seed
               stage, mapping and registration rounds, loop closure, final
@@ -56,12 +74,12 @@ Phases:
               read just after; every loop-closure call's diagnostics;
               poses_final.txt scored against the shipped poses after a
               Sim(3) alignment
-  9 seeddepth the learned seed-depth estimator (v4 head, v6 encoder) on
+ 10 seeddepth the learned seed-depth estimator (v4 head, v6 encoder) on
               the 10 chesslike_a frames scripts/depth_probe.py picks:
               raw_rel, shape_rel, scale_cv within SEEDDEPTH_TOL of the JAX
               package's (SEEDDEPTH_JAX), ms per frame, and one frame on the
               card against the port's CPU path (max |d log-depth|)
- 10 bare      the reconstruction CLI as a user runs it on a bare image glob:
+ 11 bare      the reconstruction CLI as a user runs it on a bare image glob:
               JPEG copies of the 60 frames (write_jpeg at BARE_JPEG, tinted
               by JPEG_TINT to three components) with a calibration file
               beside each; no depth files (the learned seed-depth head),
@@ -74,7 +92,7 @@ Phases:
               the 150-frame sweep) must decode to 720 x 1280 x 3 and show
               the scene; each frame's pan camera, device render, overlays
               and PNG write are timed; scene_load decodes the JPEGs cold
- 11 render    the outputs of phase bare's folder (which it brings along):
+ 12 render    the outputs of phase bare's folder (which it brings along):
               the renderer on the card against the CPU on the last
               visualizer state (RENDER_PIXEL_SHARE, and the same bits twice),
               the final-sweep CLI, export_cli point_cloud from the
@@ -87,7 +105,7 @@ Phases:
               Regressor.forward against the export's predict_coords bit for
               bit; counts zeroed just before each main-path call and read
               just after
- 12 jpeg      the host JPEG codec: the committed fixtures (every kind the
+ 13 jpeg      the host JPEG codec: the committed fixtures (every kind the
               decoder reads: baseline, progressive, any sampling factors,
               CMYK and YCCK, arithmetic coding, lossless) decode to PIL's
               arrays (sha256, tests/data/jpeg/pil_digests.json), read_rgb
@@ -105,11 +123,11 @@ Phases:
               version's), and the
               warm read of the decode cache on phase bare's JPEG glob (a
               hit)
- 13 spill     MappingTrainer on the shipped poses at full width, the device
+ 14 spill     MappingTrainer on the shipped poses at full width, the device
               buffer against the host-spill buffer (--training_buffer_cpu)
               from one seed: equal fills and bit-equal parameters after
               SPILL_STEPS[0] steps, then SPILL_STEPS[1] steps of each timed
- 14 mesh      the data mesh (parallel/mesh.py) on a logical mesh of
+ 15 mesh      the data mesh (parallel/mesh.py) on a logical mesh of
               MESH_SHARDS shards on cuda:0, and on every card when there are
               several: MappingTrainer's fill sharded (the same rows as one
               device's), gather_rows at full width bit-equal to indexing,
@@ -119,7 +137,7 @@ Phases:
               device, K1 and K2 launches counted per device (every mesh
               device launches both), counts zeroed just before each run and
               read just after; the devices' overlap under torch.profiler
- 15 pretrain  the pretraining slice: the encoder pretraining CLI at its
+ 16 pretrain  the pretraining slice: the encoder pretraining CLI at its
               default widths with the v6 recipe's contrastive weight (steps
               cut, PRETRAIN_ARGS; K1 and K2 once an image a step, counts
               zeroed just before and read just after), steps past its
@@ -131,7 +149,7 @@ Phases:
               SHORTFIT_MIN_INLIER10), then the seed-depth pretraining CLI on
               the v4 corpus (cut, DEPTH_PRETRAIN) and its first steps on the
               card against the CPU
- 16 report    one JSON line describing every kernel, then the card's
+ 17 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
 Phase `device` always runs (it turns TF32 off for the comparisons), and
@@ -165,8 +183,8 @@ ENCODER = ROOT / "weights" / "tpu_encoder_v6.pt"
 HEAD = ROOT / "results" / "heldout" / "sweep_a_warmstart" / "iteration2.pt"
 FOCAL = 520.0
 
-PHASES = ("device", "build", "kernels", "registrar", "slice", "mapping", "loopclose", "profile", "pipeline",
-          "seeddepth", "bare", "render", "jpeg", "spill", "mesh", "pretrain", "report")
+PHASES = ("device", "build", "kernels", "registrar", "slice", "formats", "mapping", "loopclose", "profile",
+          "pipeline", "seeddepth", "bare", "render", "jpeg", "spill", "mesh", "pretrain", "report")
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -430,16 +448,31 @@ BARE_JPEG = (90, "4:2:0")
 # luma is 0.299 * 12 - 0.587 * 4 - 0.114 * 11 = -0.014 of a level
 JPEG_TINT = (12, -4, -11)
 JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats"
 JPEG_ROUNDTRIP = ((75, "4:2:0"), (90, "4:2:0"), (95, "4:4:4"), (75, "4:2:0"))
 JPEG_PHOTO_HW = (3286, 4946)
 JPEG_PHOTO_FRAMES = 8
 JPEG_PHOTO_QUALITY = 95
 JPEG_WORKERS = (1, 16)
+# phase formats: TIFF, BMP and Netpbm/PFM (io/tiff.py, io/bmp.py,
+# io/pnm.py). (a) the fixtures of FORMAT_FIXTURES
+# (scripts/make_format_fixtures.py) against PIL's and the JAX package's
+# digests; (b) the 60 frames as TIFF, each FORMAT_TIFF_KINDS[i % 6], their
+# depth (the .npy maps in millimetres) as 16-bit PNG, TIFF and PGM, and the
+# register CLI (K1) and FORMAT_TRAIN (K1, K2) on the TIFF and on the PNG
+# globs; (c) FORMAT_PHOTO_FRAMES frames of JPEG_PHOTO_HW as each of
+# FORMAT_PHOTO_KINDS, read_tiff alone and decode_to_canvas with each of
+# JPEG_WORKERS
+FORMAT_TIFF_KINDS = ("raw", "packbits", "deflate_pred2", "mm", "tiled", "planar")
+FORMAT_TRAIN = MAPPING_SCHEDULE + ["--iterations", "200", "--learning_rate_warmup_iterations", "50",
+                                   "--learning_rate_cooldown_iterations", "50"]
+FORMAT_PHOTO_FRAMES = 8
+FORMAT_PHOTO_KINDS = ("raw", "deflate_pred2")
 # the Nerfstudio runner's downscale in phase render: one source of each kind
 # of image PIL opens, wider than the runner's 640-pixel bound, name: (kind,
 # (h, w)); the kind is PIL's mode, or ";16" for 16-bit colour. The port
 # writes them (runner_source, write_runner_sources), but for the palette and
-# 1-bit ones, which it has no writer for: those are committed fixtures.
+# 1-bit ones: those are PIL's own files, committed.
 # PIL's results (the JAX runner's resize and save) are in
 # tests/data/runner/pil_digests.json, made by scripts/make_runner_fixtures.py
 RUNNER_FIXTURES = ROOT / "tests" / "data" / "runner"
@@ -947,10 +980,10 @@ def runner_kinds_check(np, runner, work: Path) -> dict:
     """The runner's downscale of every runner source, written into `work`,
     against PIL's results (RUNNER_FIXTURES/pil_digests.json): for each
     source, whether its pixels, the frame's new size, focal and principal
-    point, and the output's bytes (a JPEG) or mode and pixels (a PNG)
-    equal PIL's, and all of them together (`equal_to_pil`)."""
-    from acezero_tpu_torch.data.images import read_png
-    from acezero_tpu_torch.io.png import pil_mode
+    point, and the output's bytes (a JPEG) or mode, pixels and RGB pixels
+    (a PNG) equal PIL's, and all of them together (`equal_to_pil`)."""
+    from acezero_tpu_torch.data.images import pil_array, read_image, read_rgb
+    from acezero_tpu_torch.io.formats import pil_mode
 
     want = json.loads((RUNNER_FIXTURES / "pil_digests.json").read_text())
     frames = runner_downscale(runner, write_runner_sources(np, work / "sources"), work / "out")
@@ -963,8 +996,9 @@ def runner_kinds_check(np, runner, work: Path) -> dict:
         if name.endswith(".jpg"):
             check["bytes_equal"] = hashlib.sha256(path.read_bytes()).hexdigest() == w["bytes_sha256"]
         else:
-            check.update(mode=pil_mode(path), pil_mode=w["pil_mode"])
-            check["pixels_equal"] = check["mode"] == w["mode"] and array_digest(read_png(path)) == w["sha256"]
+            check["mode"] = pil_mode(path)
+            check["pixels_equal"] = (check["mode"] == w["mode"] and array_digest(pil_array(read_image(path))) == w["sha256"]
+                                     and array_digest(read_rgb(path)) == w["rgb_sha256"])
         check["equal_to_pil"] = all(v for k, v in check.items() if k.endswith("_equal"))
         kinds[name] = check
     return kinds
@@ -1011,7 +1045,10 @@ def tinted(np, img):
 
 
 def array_digest(arr) -> str:
-    """sha256 of a decoded image's bytes (C order)."""
+    """sha256 of a decoded image's bytes (C order); a boolean array as bytes
+    of 0 and 1 (the array of PIL's mode-1 image holds 0 and 255)."""
+    if arr.dtype.kind == "b":
+        arr = (arr != 0).view("u1")
     return hashlib.sha256(arr.tobytes()).hexdigest()
 
 
@@ -1025,40 +1062,81 @@ def canvas_digest(out) -> str:
     return h.hexdigest()
 
 
-def photo_decode_child(root: Path, pattern: str, workers: int) -> dict:
-    """decode_to_canvas of a JPEG glob at a 480 short side in a fresh
-    process: seconds, a digest of the canvases, and the growth of the
-    resident set over the call (VmRSS sampled every 2 ms from just before
-    it: the process's peak, ru_maxrss, is the import's)."""
+def write_format_frame(np, path: Path, img, kind: str) -> None:
+    """Write a gray (h, w) or RGB (h, w, 3) uint8 frame as a TIFF of `kind`
+    (FORMAT_TIFF_KINDS, FORMAT_PHOTO_KINDS): "raw" with the port's
+    write_tiff, the others with the numpy writer of scripts/tiff_encode.py
+    (PackBits in strips of 16 rows, Deflate with predictor 2 in
+    strips of 8, big-endian in strips of 32, Deflate in 64 x 64 tiles,
+    planar configuration 2 in strips of 24)."""
+    from acezero_tpu_torch.io.tiff import write_tiff
+
+    if kind == "raw":
+        write_tiff(path, img, "L" if img.ndim == 2 else "RGB")
+        return
+    if str(ROOT / "scripts") not in sys.path:
+        sys.path.insert(0, str(ROOT / "scripts"))
+    from tiff_encode import tiff_bytes
+
+    opts = {"packbits": {"compression": 32773, "rows_per_strip": 16},
+            "deflate_pred2": {"compression": 8, "predictor": 2, "rows_per_strip": 8},
+            "mm": {"big": True, "rows_per_strip": 32}, "tiled": {"compression": 8, "tile": (64, 64)},
+            "planar": {"planar": 2, "rows_per_strip": 24}}[kind]
+    bits = (8,) * (1 if img.ndim == 2 else img.shape[2])
+    path.write_bytes(tiff_bytes(img, bits=bits, photometric=1 if img.ndim == 2 else 2, **opts))
+
+
+def photo_decode_runs(root: Path, runs: list) -> list[dict]:
+    """decode_to_canvas of image globs at a 480 short side in one fresh
+    process, one run a (pattern, workers) pair in turn: seconds, a digest
+    of the canvases, and the growth of the resident set over the call
+    (VmRSS sampled every 2 ms from just before it, after a garbage
+    collection and glibc's malloc_trim hand the last run's memory back;
+    the process's peak, ru_maxrss, is the import's or an earlier run's)."""
     code = (
-        "import glob, hashlib, json, resource, sys, threading, time\n"
+        "import ctypes, gc, glob, hashlib, json, resource, sys, threading, time\n"
         f"sys.path.insert(0, {str(root)!r})\n"
         "from acezero_tpu_torch.data.images import decode_to_canvas\n"
         "def rss_kib():\n"
         "    with open('/proc/self/status') as f:\n"
         "        return next(int(ln.split()[1]) for ln in f if ln.startswith('VmRSS:'))\n"
-        "peak, done = [rss_kib()], threading.Event()\n"
-        "def sample():\n"
-        "    while not done.wait(0.002):\n"
-        "        peak.append(rss_kib())\n"
-        f"paths = sorted(glob.glob({pattern!r}))\n"
-        "r0, m0 = peak[0], resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
-        "t = threading.Thread(target=sample)\n"
-        "t.start()\n"
-        "t0 = time.perf_counter()\n"
-        f"out = decode_to_canvas(paths, short_size=480, num_workers={workers})\n"
-        "dt = time.perf_counter() - t0\n"
-        "done.set()\n"
-        "t.join()\n"
-        "m1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
-        "print(json.dumps({'seconds': dt, 'frames': len(paths), 'rss_growth_mib': (max(peak) - r0) / 1024,"
-        " 'rss_samples': len(peak), 'maxrss_growth_mib': (m1 - m0) / 1024,"
-        " 'canvas_shape': list(out.canvases.shape), 'sha256': hashlib.sha256(out.canvases.tobytes()).hexdigest()}))\n"
+        "results = []\n"
+        f"for pattern, workers in {[(str(p_), int(w)) for p_, w in runs]!r}:\n"
+        "    gc.collect()\n"
+        "    try:\n"
+        "        ctypes.CDLL(None).malloc_trim(0)\n"
+        "    except (OSError, AttributeError):\n"
+        "        pass\n"
+        "    peak, done = [rss_kib()], threading.Event()\n"
+        "    def sample():\n"
+        "        while not done.wait(0.002):\n"
+        "            peak.append(rss_kib())\n"
+        "    paths = sorted(glob.glob(pattern))\n"
+        "    r0, m0 = peak[0], resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+        "    t = threading.Thread(target=sample)\n"
+        "    t.start()\n"
+        "    t0 = time.perf_counter()\n"
+        "    out = decode_to_canvas(paths, short_size=480, num_workers=workers)\n"
+        "    dt = time.perf_counter() - t0\n"
+        "    done.set()\n"
+        "    t.join()\n"
+        "    m1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+        "    results.append({'seconds': dt, 'frames': len(paths), 'rss_growth_mib': (max(peak) - r0) / 1024,"
+        " 'rss_samples': len(peak), 'maxrss_growth_mib': (m1 - m0) / 1024, 'canvas_shape': list(out.canvases.shape),"
+        " 'sha256': hashlib.sha256(out.canvases.tobytes()).hexdigest()})\n"
+        "    del out\n"
+        "print(json.dumps(results))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
-        raise RuntimeError(f"decode_to_canvas with {workers} workers failed: {out.stderr[-2000:]}")
+        raise RuntimeError(f"decode_to_canvas runs {runs} failed: {out.stderr[-2000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def photo_decode_child(root: Path, pattern: str, workers: int) -> dict:
+    """decode_to_canvas of an image glob at a 480 short side with `workers`
+    workers, alone in a fresh process (photo_decode_runs)."""
+    return photo_decode_runs(root, [(pattern, workers)])[0]
 
 
 def parse_phases(argv) -> list[str]:
@@ -1111,6 +1189,7 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.data import native as tnative
     from acezero_tpu_torch.data.images import decode_to_canvas, pil_resize_bilinear, read_png, read_rgb
     from acezero_tpu_torch.io import jpeg as tjpeg
+    from acezero_tpu_torch.io import tiff as ttiff
     from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
     from acezero_tpu_torch.io.pose_files import write_pose_file
     from acezero_tpu_torch.data.augment import normalize_images
@@ -1142,9 +1221,9 @@ def main(argv=None) -> int:
     if "build" in phases:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
-            # the host libraries (c++: the JPEG codec and the canvas pass)
-            # build while nvcc builds the kernels
-            host_sources = (tjpeg.SOURCE, tnative.SOURCE)
+            # the host libraries (c++: the JPEG codec, the canvas pass and
+            # the TIFF and BMP codecs) build while nvcc builds the kernels
+            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE)
             with concurrent.futures.ThreadPoolExecutor(max_workers=len(host_sources)) as ex:
                 hosts = [ex.submit(build.build_host, src) for src in host_sources]
                 build.build([fh.KERNEL, fh.KERNEL_BWD])
@@ -1163,6 +1242,8 @@ def main(argv=None) -> int:
 
     k1, k2 = {}, {}  # timed cases, by name
     launches = map_launches = lc_launches = None  # launch counts of phases slice, mapping, loopclose
+    format_launches = None  # launch counts of phase formats, by run
+    slice_poses = None  # phase slice's register_cli poses of the PNG glob, file names dropped
     lc_shapes = None  # [B, L] of each K1 launch of phase loopclose
     map_head = None  # (HeadConfig, params) of phase mapping's fixed-pose run
     if "kernels" in phases:
@@ -1314,6 +1395,7 @@ def main(argv=None) -> int:
                 require(rc == 0, f"register_cli returned {rc}")
                 lines = (Path(tmp) / "poses_smoke.txt").read_text().splitlines()
                 entries = read_pose_file(Path(tmp) / "poses_smoke.txt")
+            slice_poses = [ln.split()[1:] for ln in lines]
             require(launches > 0, "the main path never launched fused_head_fwd")
             require(len(lines) == N_FRAMES and all(len(ln.split()) == 10 for ln in lines),
                     f"pose file is not {N_FRAMES} lines of 10 tokens")
@@ -1379,6 +1461,172 @@ def main(argv=None) -> int:
             require(k1_exact["cells_differing"] <= 0.05,
                     f"K1 coordinates differ from the exact chain in {k1_exact['cells_differing']:.2%} of cells")
             require(k1_exact["rel_err"] <= 2**-9, f"K1 coordinates: relative error {k1_exact['rel_err']}")
+
+    if "formats" in phases:
+        with phase("formats", {}) as rec:
+            from acezero_tpu_torch.data.depth import load_depth_file
+            from acezero_tpu_torch.data.images import pil_array, read_image
+            from acezero_tpu_torch.io import formats as tformats
+            from acezero_tpu_torch.io.png import write_png
+            from acezero_tpu_torch.io.pnm import write_pnm
+            from acezero_tpu_torch.io.tiff import write_tiff
+
+            rec.update(kind=kind, nvidia_smi=smi, tiff_library=build.host_target(ttiff.SOURCE).name)
+            # (a) the committed fixtures decode to PIL's arrays and modes, and
+            # their canvases and depth maps are the JAX package's
+            t0 = time.perf_counter()
+            digests = json.loads((FORMAT_FIXTURES / "pil_digests.json").read_text())
+            checks = {}
+            for name, want in sorted(digests["files"].items()):
+                path = FORMAT_FIXTURES / name
+                arr = pil_array(read_image(path))
+                checks[name] = {"pixels": arr.dtype.str == want["dtype"] and list(arr.shape) == want["shape"]
+                                and array_digest(arr) == want["sha256"],
+                                "mode": tformats.pil_mode(path) == want["mode"],
+                                "rgb": array_digest(read_rgb(path)) == want["rgb_sha256"]}
+            bad = sorted(n for n, c in checks.items() if not all(c.values()))
+            rec["fixtures_equal_to_pil"] = f"{len(checks) - len(bad)}/{len(checks)}"
+            require(checks and not bad, f"fixtures not decoded as PIL decodes them: { {n: checks[n] for n in bad} }")
+            paths = sorted(str(FORMAT_FIXTURES / n) for n in digests["files"])
+            canvas = []
+            for entry in digests["canvas"]:
+                hw = None if entry["canvas_hw"] is None else tuple(entry["canvas_hw"])
+                out = decode_to_canvas(paths, short_size=entry["short_size"], canvas_hw=hw, num_workers=4)
+                canvas.append({"short_size": entry["short_size"], "canvas_hw": entry["canvas_hw"],
+                               "shape": list(out.canvases.shape),
+                               "equal_to_jax": canvas_digest(out) == entry["sha256"]})
+            rec["canvas"] = canvas
+            require(len(canvas) == 2 and all(c["equal_to_jax"] for c in canvas),
+                    f"decode_to_canvas over the fixtures is not the JAX package's: {canvas}")
+            depth = {n: array_digest(load_depth_file(FORMAT_FIXTURES / n)) == want
+                     for n, want in digests["depth"].items()}
+            rec["depth_equal_to_jax"] = f"{sum(depth.values())}/{len(depth)}"
+            require(depth and all(depth.values()), f"load_depth_file is not the JAX package's: {depth}")
+            rec["fixtures_seconds"] = time.perf_counter() - t0
+
+            # (b) the 60 frames as TIFF (FORMAT_TIFF_KINDS in turn), their
+            # depth in millimetres as 16-bit PNG, TIFF (II and MM) and PGM
+            tmp = Path(work) / "formats"
+            for sub in ("tif", "depth_png", "depth_tif", "depth_pgm"):
+                (tmp / sub).mkdir(parents=True)
+            frames = sorted(glob.glob(str(SCENE / FRAMES)))
+            t0 = time.perf_counter()
+            for i, f in enumerate(frames):
+                stem = Path(f).stem
+                write_format_frame(np, tmp / "tif" / f"{stem}.tif", read_png(f), FORMAT_TIFF_KINDS[i % 6])
+                mm = np.clip(np.round(np.load(f[: -len(".png")] + "_depth.npy") * 1000), 0, 65535).astype(np.uint16)
+                write_png(tmp / "depth_png" / f"{stem}_depth.png", mm)
+                write_tiff(tmp / "depth_tif" / f"{stem}_depth.tif", mm, "I;16B" if i % 2 else "I;16")
+                write_pnm(tmp / "depth_pgm" / f"{stem}_depth.pgm", mm, "I;16")
+            rec["write_seconds"] = time.perf_counter() - t0
+            png_glob, tif_glob = str(SCENE / FRAMES), str(tmp / "tif" / "frame_*.tif")
+            rec["tiff_kinds"] = {k: sum(1 for i in range(len(frames)) if FORMAT_TIFF_KINDS[i % 6] == k)
+                                 for k in FORMAT_TIFF_KINDS}
+            t0 = time.perf_counter()
+            want_canvas = canvas_digest(decode_to_canvas(frames, short_size=480))
+            rec["canvases_equal_to_png"] = canvas_digest(decode_to_canvas(sorted(glob.glob(tif_glob)),
+                                                                          short_size=480)) == want_canvas
+            depth_equal = []
+            for f in frames:
+                stem = Path(f).stem
+                ref = load_depth_file(tmp / "depth_png" / f"{stem}_depth.png")
+                depth_equal.append(all(np.array_equal(load_depth_file(tmp / sub / f"{stem}_depth.{ext}"), ref)
+                                       for sub, ext in (("depth_tif", "tif"), ("depth_pgm", "pgm"))))
+            rec["depth_equal_to_png"] = f"{sum(depth_equal)}/{len(depth_equal)}"
+            rec["decode_seconds"] = time.perf_counter() - t0
+            require(rec["canvases_equal_to_png"], "the TIFF glob's canvases differ from the PNG glob's")
+            require(all(depth_equal), f"the TIFF and PGM depth maps differ from the PNGs: {rec['depth_equal_to_png']}")
+
+            # the register CLI (K1) on each glob with the shipped head; the
+            # PNG glob's poses are phase slice's run where it ran
+            format_launches = {}
+            poses = {"png": slice_poses} if slice_poses is not None else {}
+            for name, pattern in (("png", png_glob), ("tiff", tif_glob)):
+                if name in poses:
+                    format_launches[f"register_{name}"] = "phase slice"
+                    continue
+                net = tmp / f"head_{name}.pt"
+                shutil.copy(HEAD, net)
+                argv = [pattern, str(net), "--encoder_path", str(ENCODER), "--use_external_focal_length", str(FOCAL),
+                        "--session", name, "--device", DEVICE]
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = time.perf_counter()
+                require(register_cli.main(argv) == 0, f"register_cli failed on the {name} glob")
+                torch.cuda.synchronize()
+                format_launches[f"register_{name}"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                                       "seconds": time.perf_counter() - t0}
+                poses[name] = [ln.split()[1:] for ln in (tmp / f"poses_{name}.txt").read_text().splitlines()]
+            rec["register_poses_equal"] = poses["png"] == poses["tiff"] and len(poses["tiff"]) == N_FRAMES
+            require(rec["register_poses_equal"], "register_cli gives other poses on the TIFF glob")
+            require(format_launches["register_tiff"]["fwd"] > 0 and format_launches["register_tiff"]["bwd"] == 0,
+                    f"register_cli on the TIFF glob: launches {format_launches['register_tiff']}")
+
+            # a short train CLI run (K1, K2) on each glob, depth from the PNGs
+            # and from the TIFFs, one seed: the same map
+            maps = {}
+            for name, pattern, depth_glob in (("png", png_glob, tmp / "depth_png" / "*_depth.png"),
+                                              ("tiff", tif_glob, tmp / "depth_tif" / "*_depth.tif")):
+                net = tmp / f"map_{name}.pt"
+                argv = [pattern, str(net), "--pose_files", str(SCENE / FRAMES.replace(".png", "_pose.txt")),
+                        "--depth_files", str(depth_glob), "--use_external_focal_length", str(FOCAL),
+                        "--encoder_path", str(ENCODER), "--device", DEVICE, *FORMAT_TRAIN]
+                fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+                t0 = time.perf_counter()
+                result = train_ace_cli.main(argv)
+                torch.cuda.synchronize()
+                format_launches[f"train_{name}"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                                    "steps": result["steps"], "seconds": time.perf_counter() - t0}
+                maps[name] = tree_leaves(torch_io.load_head(net, "cpu")[1])
+            rec["train_map_bit_equal"] = len(maps["png"]) == len(maps["tiff"]) and all(
+                torch.equal(a, b) for a, b in zip(maps["png"], maps["tiff"]))
+            rec["launches"] = format_launches
+            require(rec["train_map_bit_equal"], "train_ace_cli gives another map on the TIFF glob")
+            t = format_launches["train_tiff"]
+            require(t["bwd"] == t["steps"] and t["fwd"] >= t["steps"] > 0,
+                    f"train_ace_cli on the TIFF glob: launches {t}")
+
+            # (c) photo-size frames: the chesslike frames enlarged to
+            # JPEG_PHOTO_HW, tinted, as each of FORMAT_PHOTO_KINDS
+            photo = tmp / "photo"
+            srcs = frames[:: N_FRAMES // FORMAT_PHOTO_FRAMES][:FORMAT_PHOTO_FRAMES]
+
+            def make_photo(i_f):
+                i, f = i_f
+                big = pil_resize_bilinear(tinted(np, read_png(f)), *JPEG_PHOTO_HW)
+                for k in FORMAT_PHOTO_KINDS:
+                    write_format_frame(np, photo / k / f"photo_{i:02d}.tif", big, k)
+
+            for k in FORMAT_PHOTO_KINDS:
+                (photo / k).mkdir(parents=True)
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=FORMAT_PHOTO_FRAMES) as ex:
+                list(ex.map(make_photo, enumerate(srcs)))
+            mp = JPEG_PHOTO_HW[0] * JPEG_PHOTO_HW[1] / 1e6
+            rec["photo"] = {"frames": len(srcs), "hw": list(JPEG_PHOTO_HW), "megapixels": mp,
+                            "make_seconds": time.perf_counter() - t0}
+            for k in FORMAT_PHOTO_KINDS:
+                files = sorted(str(p_) for p_ in (photo / k).glob("*.tif"))
+                read_s = []
+                for f in files[:3]:
+                    t0 = time.perf_counter()
+                    img = ttiff.read_tiff(f).pixels
+                    read_s.append(time.perf_counter() - t0)
+                require(img.shape == (*JPEG_PHOTO_HW, 3), f"a {k} photo frame decodes to {img.shape}")
+                del img
+                rec["photo"][k] = {"mean_bytes": statistics.mean(Path(f).stat().st_size for f in files),
+                                   "read_tiff_ms": statistics.median(read_s) * 1e3,
+                                   "read_tiff_mp_per_s": mp / statistics.median(read_s)}
+            # decode_to_canvas of each kind with each worker count, in turn
+            # in one fresh process (its import is paid once)
+            pairs = [(k, w) for k in FORMAT_PHOTO_KINDS for w in JPEG_WORKERS]
+            runs = photo_decode_runs(ROOT, [(str(photo / k / "*.tif"), w) for k, w in pairs])
+            for (k, w), r in zip(pairs, runs):
+                r.update(ms_per_image=r["seconds"] / r["frames"] * 1e3, mp_per_s=r["frames"] * mp / r["seconds"])
+                rec["photo"][k].setdefault("decode_to_canvas", {})[str(w)] = r
+            require(all(r["frames"] == FORMAT_PHOTO_FRAMES for r in runs), f"decode_to_canvas of the photo frames: {runs}")
+            require(len({r["sha256"] for r in runs}) == 1,
+                    "the photo frames' canvases differ between kinds or worker counts")
+            shutil.rmtree(photo)
 
     if "mapping" in phases:
         with phase("mapping", {}) as rec:

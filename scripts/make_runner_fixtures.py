@@ -3,15 +3,15 @@
 PIL's where there is no PIL (the card's machine):
 
 - tests/data/runner/palette.png and bilevel.png: the runner sources of
-  modes P and 1 (chip_smoke.RUNNER_SOURCES), which the port has no writer
-  for, saved by PIL from chip_smoke.runner_source's pixels;
+  modes P and 1 (chip_smoke.RUNNER_SOURCES) as PIL's own files, saved by
+  PIL from chip_smoke.runner_source's pixels;
 - tests/data/runner/pil_digests.json: for each runner source, the sha256
   of chip_smoke.runner_source's pixels, and what the JAX runner's
   downscale (PIL's `resize(BILINEAR)` and `save`) makes of the source that
   chip_smoke.write_runner_sources writes: the frame's new size, focal and
-  principal point, and the output's bytes (a JPEG) or its mode and pixels
-  as PIL opens it (a PNG; modes P and 1 after PIL's `convert("RGB")` and
-  `convert("L")`, the pixels the port writes for them).
+  principal point, and the output's bytes (a JPEG) or its mode, its pixels
+  as PIL opens it and its `convert("RGB")` (a PNG; a mode-P output's
+  indices, a mode-1 output's bits).
 
     python3 scripts/make_runner_fixtures.py
 
@@ -36,7 +36,6 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 OUT = chip_smoke.RUNNER_FIXTURES
-LOST_MODES = {"P": "RGB", "1": "L"}  # PIL keeps these modes; the port writes their pixels in these
 
 
 def write_fixtures() -> None:
@@ -65,10 +64,9 @@ def digests(work: Path) -> dict:
             entry["bytes_sha256"] = hashlib.sha256(Path(fr["file_path"]).read_bytes()).hexdigest()
         else:
             with Image.open(fr["file_path"]) as img:
-                mode = LOST_MODES.get(img.mode, img.mode)
-                arr = np.asarray(img.convert(mode) if img.mode in LOST_MODES else img)
-                entry.update(pil_mode=img.mode, mode=mode, shape=list(arr.shape),
-                             sha256=chip_smoke.array_digest(arr))
+                arr = np.asarray(img)
+                entry.update(mode=img.mode, shape=list(arr.shape), sha256=chip_smoke.array_digest(arr),
+                             rgb_sha256=chip_smoke.array_digest(np.asarray(img.convert("RGB"))))
         out[name] = entry
     return out
 

@@ -37,6 +37,9 @@ def test_default_runs_every_phase():
     ("jpeg,build", ["device", "build", "jpeg"]),
     ("spill,jpeg,render", ["device", "bare", "render", "jpeg", "spill"]),
     ("jpeg,bare", ["device", "bare", "jpeg"]),
+    ("formats", ["device", "formats"]),
+    ("formats,build", ["device", "build", "formats"]),
+    ("mapping,formats,slice", ["device", "slice", "formats", "mapping"]),
 ])
 def test_subset_in_script_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
@@ -313,3 +316,37 @@ def test_jpeg_phase_follows_bare_and_its_inputs_stand_alone():
     luma = np.dot(chip_smoke.JPEG_TINT, (0.299, 0.587, 0.114))
     assert abs(luma) < 0.05
     assert (chip_smoke.JPEG_FIXTURES / "pil_digests.json").exists()
+
+
+def test_formats_phase_between_slice_and_mapping_and_its_frames_decode(tmp_path):
+    """Phase formats runs after slice and before mapping; each TIFF kind it
+    writes the frames in decodes to the frame's pixels, gray and RGB, and
+    its fixtures' digests are there."""
+    import numpy as np
+
+    from acezero_tpu_torch.io.tiff import read_tiff
+
+    order = list(chip_smoke.PHASES)
+    assert order.index("slice") + 1 == order.index("formats") == order.index("mapping") - 1
+    assert set(chip_smoke.FORMAT_PHOTO_KINDS) <= set(chip_smoke.FORMAT_TIFF_KINDS)
+    assert len(chip_smoke.FORMAT_TIFF_KINDS) == 6 and chip_smoke.FORMAT_PHOTO_FRAMES == 8
+    assert chip_smoke.FORMAT_TRAIN[: len(chip_smoke.MAPPING_SCHEDULE)] == chip_smoke.MAPPING_SCHEDULE
+    rng = np.random.default_rng(0)
+    for shape in ((70, 150), (70, 150, 3)):
+        img = rng.integers(0, 256, shape, np.uint8)
+        for kind in chip_smoke.FORMAT_TIFF_KINDS:
+            path = tmp_path / f"{kind}_{len(shape)}.tif"
+            chip_smoke.write_format_frame(np, path, img, kind)
+            r = read_tiff(path)
+            assert r.mode == ("L" if img.ndim == 2 else "RGB") and np.array_equal(r.pixels, img), kind
+    assert (chip_smoke.FORMAT_FIXTURES / "pil_digests.json").exists()
+
+
+def test_array_digest_takes_pils_bilevel_bytes():
+    """A mode-1 array of PIL holds 0 and 255; its digest is that of 0 and 1."""
+    import numpy as np
+
+    b = np.array([[True, False, True]])
+    pil_like = np.frombuffer(bytes([255, 0, 255]), np.bool_).reshape(1, 3)
+    assert chip_smoke.array_digest(pil_like) == chip_smoke.array_digest(b) == chip_smoke.array_digest(
+        np.array([[1, 0, 1]], np.uint8))

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py stand alone: no JAX, no acezero_tpu, no PIL,
+"""The port, chip_smoke.py and the numpy TIFF writer it imports
+(scripts/tiff_encode.py) stand alone: no JAX, no acezero_tpu, no PIL,
 no other image library, no ninja and no torch.utils.cpp_extension, both by
 an AST scan of every import and by importing them with those modules
 blocked; and no file of the port names the JAX package's canvas pass
@@ -16,10 +17,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "acezero_tpu", "PIL", "cv2", "imageio", "torchvision", "ninja",
              "torch.utils.cpp_extension")
-FILES = sorted((ROOT / "acezero_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# every source file of the port, whatever its language, and chip_smoke.py
+# chip_smoke.py and the numpy TIFF writer it imports from scripts/
+SMOKE = [ROOT / "chip_smoke.py", ROOT / "scripts" / "tiff_encode.py"]
+FILES = sorted((ROOT / "acezero_tpu_torch").rglob("*.py")) + SMOKE
+# every source file of the port, whatever its language, and SMOKE
 SOURCES = sorted(p for p in (ROOT / "acezero_tpu_torch").rglob("*")
-                 if p.is_file() and p.suffix in (".py", ".cpp", ".cu", ".cuh", ".h")) + [ROOT / "chip_smoke.py"]
+                 if p.is_file() and p.suffix in (".py", ".cpp", ".cu", ".cuh", ".h")) + SMOKE
 JAX_NATIVE_NAMES = ("native/canvas.cpp", "libacezero_canvas")
 
 
@@ -58,6 +61,7 @@ def test_files_found():
     assert (ROOT / "acezero_tpu_torch" / "ops" / "csrc" / "fused_head_fwd.cu").exists()
     assert {ROOT / "acezero_tpu_torch" / "parallel" / n for n in ("__init__.py", "mesh.py")} <= set(FILES)
     assert ROOT / "acezero_tpu_torch" / "data" / "csrc" / "canvas.cpp" in SOURCES
+    assert all(p.exists() for p in SMOKE)
 
 
 _BLOCKER = """
@@ -77,13 +81,17 @@ names = [m.name for m in pkgutil.walk_packages(acezero_tpu_torch.__path__, "acez
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-print("imported", len(names) + 1)
+sys.path.insert(0, {scripts!r})
+import tempfile, numpy, tiff_encode
+with tempfile.TemporaryDirectory() as tmp:  # the writer of phase formats, as it runs there
+    chip_smoke.write_format_frame(numpy, chip_smoke.Path(tmp) / "f.tif", numpy.zeros((4, 5, 3), numpy.uint8), "planar")
+print("imported", len(names) + 2)
 """
 
 
 def test_import_with_forbidden_modules_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", _BLOCKER.format(forbidden=FORBIDDEN)], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", _BLOCKER.format(forbidden=FORBIDDEN, scripts=str(ROOT / "scripts"))], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "imported" in out.stdout

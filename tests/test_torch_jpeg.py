@@ -59,6 +59,7 @@ from acezero_tpu.export import point_cloud as jpc
 from acezero_tpu_torch.data import images as timg
 from acezero_tpu_torch.data.scene import load_scene as t_load_scene
 from acezero_tpu_torch.export import point_cloud as tpc
+from acezero_tpu_torch.io import formats
 from acezero_tpu_torch.io import jpeg as tjpeg
 from acezero_tpu_torch.io import png as tpng
 from acezero_tpu_torch.ops import build
@@ -676,7 +677,6 @@ def test_oversize_sizes_round_in_float64(tmp_path):
 # ------------------------------------------------------------- the runner's downscale
 
 RUNNER_NAMES = list(chip_smoke.RUNNER_SOURCES)
-LOST_MODES = {"P": "RGB", "1": "L"}  # PIL keeps these modes; the port writes their pixels in these
 PIL_OPENS = {"RGB;16": "RGB", "RGBA;16": "RGBA", "LA;16": "RGBA"}  # the mode PIL opens 16-bit colour in
 
 
@@ -719,8 +719,8 @@ def runner_outputs(tmp_path_factory):
 def test_runner_downscales_every_mode_as_pil(name, writer, runner_outputs):
     """The port's runner against the JAX runner's PIL `resize(BILINEAR)` and
     `save` of the same source: the same frame entry, JPEG bytes equal, PNG
-    mode and pixels equal under PIL, palette and 1-bit sources written as
-    their RGB and gray pixels (the recorded difference)."""
+    mode, pixels (a palette output's indices, a 1-bit one's bits) and RGB
+    pixels equal under PIL."""
     ft, fj = runner_outputs[writer]["t"][name], runner_outputs[writer]["j"][name]
     assert {k: v for k, v in ft.items() if k != "file_path"} == {k: v for k, v in fj.items() if k != "file_path"}
     got, want = Path(ft["file_path"]), Path(fj["file_path"])
@@ -732,9 +732,9 @@ def test_runner_downscales_every_mode_as_pil(name, writer, runner_outputs):
     with Image.open(got) as g, Image.open(want) as w:
         kind = chip_smoke.RUNNER_SOURCES[name][0]
         assert w.mode == PIL_OPENS.get(kind, kind)  # PIL keeps the mode it opened the source in
-        mode = LOST_MODES.get(w.mode, w.mode)
-        assert g.mode == mode
-        assert np.array_equal(np.asarray(g), np.asarray(w.convert(mode) if w.mode in LOST_MODES else w))
+        assert g.mode == w.mode
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+        assert np.array_equal(np.asarray(g.convert("RGB")), np.asarray(w.convert("RGB")))
 
 
 def test_runner_digests_are_pils_and_the_ports(tmp_path):
@@ -838,7 +838,7 @@ def test_write_png_opens_in_pils_mode_with_its_pixels(dtype, channels, tmp_path)
     else:
         _png(tmp_path / "ref.png", px, 16, {2: 4, 3: 2, 4: 6}[channels])
     with Image.open(tmp_path / "port.png") as got, Image.open(tmp_path / "ref.png") as want:
-        assert got.mode == want.mode == tpng.pil_mode(tmp_path / "port.png")
+        assert got.mode == want.mode == formats.pil_mode(tmp_path / "port.png")
         assert np.array_equal(np.asarray(got), np.asarray(want))
     assert np.array_equal(timg.read_png(tmp_path / "port.png"), px)
 
@@ -847,7 +847,7 @@ def test_write_png_opens_in_pils_mode_with_its_pixels(dtype, channels, tmp_path)
 def test_pil_mode_is_the_mode_pil_opens_a_png_in(ctype, depth, interlace, tmp_path):
     p = _png_case(tmp_path, ctype, depth, interlace)
     with Image.open(p) as img:
-        assert tpng.pil_mode(p) == img.mode
+        assert formats.pil_mode(p) == img.mode
 
 
 def test_frame_colors_match_jax_on_jpeg_frames(tmp_path):

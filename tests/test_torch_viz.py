@@ -25,7 +25,8 @@ from acezero_tpu.viz import VizConfig as JVizConfig
 from acezero_tpu.viz import overlay as jov
 from acezero_tpu.viz import renderer as jr
 from acezero_tpu_torch.data.images import read_png
-from acezero_tpu_torch.io.png import image_size, write_png
+from acezero_tpu_torch.io.formats import image_size
+from acezero_tpu_torch.io.png import write_png
 from acezero_tpu_torch.viz import ReconstructionVisualizer, VizConfig
 from acezero_tpu_torch.viz import font, overlay as tov
 from acezero_tpu_torch.viz import renderer as tr
@@ -282,6 +283,9 @@ def test_image_size_png_and_jpeg(mode, size, tmp_path):
         for i, kw in enumerate(({}, {"progressive": True}, {"quality": 40, "exif": b"Exif\x00\x00" + bytes(900)})):
             img.save(tmp_path / f"a{i}.jpg", **kw)
             assert image_size(tmp_path / f"a{i}.jpg") == Image.open(tmp_path / f"a{i}.jpg").size == size
-    (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(40))
+    (tmp_path / "x.gif").write_bytes(b"GIF89a" + bytes(40))
     with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+        image_size(tmp_path / "x.gif")
+    (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(40))  # a BMP header of size 0, which PIL refuses too
+    with pytest.raises(ValueError, match="PIL does not open a BMP"):
         image_size(tmp_path / "x.bmp")
