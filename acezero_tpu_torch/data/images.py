@@ -8,8 +8,10 @@ RGBA, all five row filters, Adam7 interlacing; 2- and 4-bit gray is scaled
 to 8 bits as PIL's modes give it (`read_png` also turns a palette image to
 RGB and 1-bit gray to 0/255). JPEG files decode in io/csrc/jpeg.cpp
 (io/jpeg.py) to PIL's own pixels; a four-component JPEG comes back as a
-`CmykImage`, so its mode travels with it. PNG, TIFF (io/tiff.py), BMP
-(io/bmp.py) and Netpbm/PFM (io/pnm.py) files decode to an array whose
+`CmykImage`, so its mode travels with it. WebP files decode in
+io/csrc/webp.cpp (io/webp.py) to PIL's RGB or RGBA array of the first
+frame. PNG, TIFF (io/tiff.py), BMP (io/bmp.py) and Netpbm/PFM
+(io/pnm.py) files decode to an array whose
 dtype tells PIL's mode (bool 1, uint8 L, LA, RGB or RGBA, uint16 I;16,
 int32 I, float32 F), a `CmykImage`, or a `ModeImage` where it does not (P
 with its palette, I;16B). Anything else raises ValueError naming the
@@ -65,7 +67,7 @@ from pathlib import Path
 import numpy as np
 
 from acezero_tpu_torch.data import native
-from acezero_tpu_torch.io import bmp, formats, pnm, tiff
+from acezero_tpu_torch.io import bmp, formats, pnm, tiff, webp
 from acezero_tpu_torch.io.formats import PNG_SIGNATURE as _PNG_SIGNATURE
 from acezero_tpu_torch.io.formats import image_size
 from acezero_tpu_torch.io.jpeg import read_jpeg
@@ -265,9 +267,9 @@ class ModeImage:
 
 
 def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
-    """Decode a PNG (`read_png`), JPEG (io/jpeg.py::read_jpeg), TIFF, BMP or
-    Netpbm/PFM file, told apart by its signature (module note). Anything
-    else raises ValueError."""
+    """Decode a PNG (`read_png`), JPEG (io/jpeg.py::read_jpeg), TIFF, BMP,
+    Netpbm/PFM or WebP file, told apart by its signature (module note).
+    Anything else raises ValueError."""
     kind = formats.file_kind(path)
     if kind == "png":
         img, palette = _read_png_samples(path)
@@ -275,8 +277,8 @@ def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     if kind == "jpeg":
         img = read_jpeg(path)
         return CmykImage(img) if img.ndim == 3 and img.shape[2] == 4 else img
-    if kind in ("tiff", "bmp", "pnm"):
-        r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm}[kind](path)
+    if kind in ("tiff", "bmp", "pnm", "webp"):
+        r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm, "webp": webp.read_webp}[kind](path)
         if r.mode == "CMYK":
             return CmykImage(r.pixels)
         if r.mode in ("P", "I;16B"):

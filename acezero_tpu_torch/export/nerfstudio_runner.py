@@ -14,8 +14,9 @@ BILINEAR)` gives for any source the port reads, in the mode PIL opens it in
 `img.save(dst)` writes it, the format picked by the suffix: a JPEG by
 io/jpeg.py (PIL's default quality 75 and sampling, PIL's bytes), a TIFF by
 io/tiff.py (uncompressed, as PIL's default), a BMP by io/bmp.py (PIL's
-bytes), a PBM/PGM/PPM/PFM by io/pnm.py (PIL's bytes), a PNG by io/png.py
-(PIL's mode and pixels, other bytes). Modes L, RGB and CMYK take Pillow's
+bytes), a PBM/PGM/PPM/PFM by io/pnm.py (PIL's bytes), a WebP by
+io/webp.py (lossless, see below), a PNG by io/png.py (PIL's mode and
+pixels, other bytes). Modes L, RGB and CMYK take Pillow's
 8-bit bilinear resize (data/images.py::pil_resize_bilinear), I;16 and
 I;16B its 16-bit one (I;16B's bytes taken in the wrong order, as Pillow
 takes them on a little-endian host), I and F its 32-bit one; LA and RGBA are
@@ -34,7 +35,11 @@ pixels but in two cases: an I;16B image that libtiff writes (the source
 LZW, Deflate or PackBits) reads back as I;16, so the port writes I;16
 there; and a JPEG-compressed source, which PIL compresses again with
 libtiff's JPEG encoder, loses what that loses, and the port's uncompressed
-file keeps it (ROADMAP.md records the difference).
+file keeps it (ROADMAP.md records the difference). A WebP source (mode
+RGB or RGBA) is written as a lossless VP8L file whose alpha bit follows the
+mode, so it reads back in the source's mode as PIL's resize exactly; PIL's
+save writes lossy VP8 at quality 80, whose read-back differs from its
+resize by that loss (the second recorded difference).
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from acezero_tpu_torch.io.formats import image_size, pil_mode
 from acezero_tpu_torch.io.jpeg import write_jpeg
 from acezero_tpu_torch.io.png import write_png
 from acezero_tpu_torch.io.pnm import write_pnm
+from acezero_tpu_torch.io.webp import write_webp
 
 _logger = logging.getLogger(__name__)
 
@@ -125,7 +131,8 @@ def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.nda
 
 def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = None) -> None:
     """PIL's `img.save(dst)` of an image of `mode`, its format picked by the
-    name: a JPEG, TIFF, BMP or PBM/PGM/PPM/PFM for their suffixes, a PNG
+    name: a JPEG, TIFF, BMP, PBM/PGM/PPM/PFM or WebP (lossless RGB or RGBA,
+    where PIL writes lossy VP8: module note) for their suffixes, a PNG
     otherwise."""
     suffix = dst.suffix.lower()
     if suffix in JPEG_SUFFIXES:
@@ -138,6 +145,10 @@ def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = No
         write_bmp(dst, img, mode, palette)
     elif suffix in PNM_SUFFIXES:
         write_pnm(dst, img, mode)
+    elif suffix == ".webp":
+        if mode not in ("RGB", "RGBA"):
+            raise OSError(f"cannot write mode {mode} as WebP")
+        write_webp(dst, img)
     else:
         write_png(dst, img, palette)
 

@@ -13,9 +13,9 @@ Phases:
   0 device    the card, its power limit, the torch/CUDA versions
   1 build     nvcc builds every kernel of the paths from csrc/, in parallel,
               and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp),
-              the canvas pass (data/csrc/canvas.cpp) and the TIFF and BMP
-              codecs (io/csrc/tiff.cpp), with the compiler's version and
-              seconds
+              the canvas pass (data/csrc/canvas.cpp), the TIFF and BMP
+              codecs (io/csrc/tiff.cpp) and the WebP codec
+              (io/csrc/webp.cpp), with the compiler's version and seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
               events, median) and resources: K1 (head chain forward) and K2
@@ -43,7 +43,16 @@ Phases:
               Deflate + predictor 2 TIFFs: read_tiff's ms, decode_to_canvas
               with each of JPEG_WORKERS, the four runs in turn in one fresh
               process (ms per image, peak RSS growth; the same canvases for
-              both kinds)
+              both kinds); then WebP (io/webp.py, io/csrc/webp.cpp): the
+              committed fixtures of every kind (tests/data/webp) against
+              PIL's digests, the 60 frames as lossless WebP that the port's
+              encoder writes, whose canvases must be the PNG glob's and
+              whose register CLI run (K1, counts zeroed just before and
+              read just after) must give the PNG glob's poses; read_webp's
+              ms and MP/s on the committed lossy photo and on a lossless
+              frame of JPEG_PHOTO_HW, and decode_to_canvas of
+              FORMAT_PHOTO_FRAMES such frames in the same fresh process as
+              the TIFF runs (the canvases equal the TIFF frames')
   6 mapping   the train CLI end to end on the 60 frames and their shipped
               poses at full width (batch 5,120, 614,400 buffer rows): the
               pipeline's mapping recipe, then the same schedule with the
@@ -449,6 +458,8 @@ BARE_JPEG = (90, "4:2:0")
 JPEG_TINT = (12, -4, -11)
 JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
 FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats"
+WEBP_FIXTURES = ROOT / "tests" / "data" / "webp"
+WEBP_PHOTO = "photo_lossy_q80.webp"  # the committed lossy photo read_webp is timed on
 JPEG_ROUNDTRIP = ((75, "4:2:0"), (90, "4:2:0"), (95, "4:4:4"), (75, "4:2:0"))
 JPEG_PHOTO_HW = (3286, 4946)
 JPEG_PHOTO_FRAMES = 8
@@ -1190,6 +1201,7 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.data.images import decode_to_canvas, pil_resize_bilinear, read_png, read_rgb
     from acezero_tpu_torch.io import jpeg as tjpeg
     from acezero_tpu_torch.io import tiff as ttiff
+    from acezero_tpu_torch.io import webp as twebp
     from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
     from acezero_tpu_torch.io.pose_files import write_pose_file
     from acezero_tpu_torch.data.augment import normalize_images
@@ -1221,9 +1233,10 @@ def main(argv=None) -> int:
     if "build" in phases:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
-            # the host libraries (c++: the JPEG codec, the canvas pass and
-            # the TIFF and BMP codecs) build while nvcc builds the kernels
-            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE)
+            # the host libraries (c++: the JPEG codec, the canvas pass, the
+            # TIFF and BMP codecs and the WebP codec) build while nvcc
+            # builds the kernels
+            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE)
             with concurrent.futures.ThreadPoolExecutor(max_workers=len(host_sources)) as ex:
                 hosts = [ex.submit(build.build_host, src) for src in host_sources]
                 build.build([fh.KERNEL, fh.KERNEL_BWD])
@@ -1585,6 +1598,59 @@ def main(argv=None) -> int:
             require(t["bwd"] == t["steps"] and t["fwd"] >= t["steps"] > 0,
                     f"train_ace_cli on the TIFF glob: launches {t}")
 
+            # WebP: the committed fixtures against PIL's digests; the 60
+            # frames as lossless WebP (the port's encoder; the gray frames
+            # as RGB, whose float32 luma at the frames' own size rounds back
+            # to the gray level): the PNG glob's canvases, and the register
+            # CLI (K1) the PNG glob's poses
+            t0 = time.perf_counter()
+            wdigests = json.loads((WEBP_FIXTURES / "pil_digests.json").read_text())["files"]
+            wchecks = {}
+            for name, want in sorted(wdigests.items()):
+                path = WEBP_FIXTURES / name
+                r = twebp.read_webp(path)
+                width, height, mode = tformats.header(path)
+                wchecks[name] = (r.mode == mode == want["mode"] and [width, height] == want["size"]
+                                 and list(r.pixels.shape) == want["shape"] and array_digest(r.pixels) == want["sha256"])
+            wbad = sorted(n for n, ok in wchecks.items() if not ok)
+            rec["webp_library"] = build.host_target(twebp.SOURCE).name
+            rec["webp_build_seconds"] = build.build_info[twebp.SOURCE.stem]["seconds"]
+            rec["webp_fixtures_equal_to_pil"] = f"{len(wchecks) - len(wbad)}/{len(wchecks)}"
+            require(wchecks and not wbad, f"WebP fixtures not decoded as PIL decodes them: {wbad}")
+            lossy = WEBP_FIXTURES / WEBP_PHOTO
+            read_s = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                img = twebp.read_webp(lossy).pixels
+                read_s.append(time.perf_counter() - t1)
+            rec["webp_lossy_photo"] = {"file": WEBP_PHOTO, "hw": list(img.shape[:2]), "bytes": lossy.stat().st_size,
+                                       "read_webp_ms": statistics.median(read_s) * 1e3,
+                                       "read_webp_mp_per_s": img.shape[0] * img.shape[1] / 1e6 / statistics.median(read_s)}
+            (tmp / "webp").mkdir()
+            for f in frames:
+                img = read_png(f)
+                twebp.write_webp(tmp / "webp" / f"{Path(f).stem}.webp", np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img)
+            webp_glob = str(tmp / "webp" / "frame_*.webp")
+            rec["webp_canvases_equal_to_png"] = canvas_digest(decode_to_canvas(sorted(glob.glob(webp_glob)),
+                                                                               short_size=480)) == want_canvas
+            require(rec["webp_canvases_equal_to_png"], "the lossless WebP glob's canvases differ from the PNG glob's")
+            net = tmp / "head_webp.pt"
+            shutil.copy(HEAD, net)
+            argv = [webp_glob, str(net), "--encoder_path", str(ENCODER), "--use_external_focal_length", str(FOCAL),
+                    "--session", "webp", "--device", DEVICE]
+            fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+            t1 = time.perf_counter()
+            require(register_cli.main(argv) == 0, "register_cli failed on the WebP glob")
+            torch.cuda.synchronize()
+            format_launches["register_webp"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                                "seconds": time.perf_counter() - t1}
+            webp_poses = [ln.split()[1:] for ln in (tmp / "poses_webp.txt").read_text().splitlines()]
+            rec["webp_register_poses_equal"] = webp_poses == poses["png"] and len(webp_poses) == N_FRAMES
+            require(rec["webp_register_poses_equal"], "register_cli gives other poses on the WebP glob")
+            require(format_launches["register_webp"]["fwd"] > 0 and format_launches["register_webp"]["bwd"] == 0,
+                    f"register_cli on the WebP glob: launches {format_launches['register_webp']}")
+            webp_seconds = time.perf_counter() - t0
+
             # (c) photo-size frames: the chesslike frames enlarged to
             # JPEG_PHOTO_HW, tinted, as each of FORMAT_PHOTO_KINDS
             photo = tmp / "photo"
@@ -1595,15 +1661,19 @@ def main(argv=None) -> int:
                 big = pil_resize_bilinear(tinted(np, read_png(f)), *JPEG_PHOTO_HW)
                 for k in FORMAT_PHOTO_KINDS:
                     write_format_frame(np, photo / k / f"photo_{i:02d}.tif", big, k)
+                t0 = time.perf_counter()
+                twebp.write_webp(photo / "webp" / f"photo_{i:02d}.webp", big)
+                return time.perf_counter() - t0
 
-            for k in FORMAT_PHOTO_KINDS:
+            for k in FORMAT_PHOTO_KINDS + ("webp",):
                 (photo / k).mkdir(parents=True)
             t0 = time.perf_counter()
             with concurrent.futures.ThreadPoolExecutor(max_workers=FORMAT_PHOTO_FRAMES) as ex:
-                list(ex.map(make_photo, enumerate(srcs)))
+                webp_write_s = list(ex.map(make_photo, enumerate(srcs)))
             mp = JPEG_PHOTO_HW[0] * JPEG_PHOTO_HW[1] / 1e6
             rec["photo"] = {"frames": len(srcs), "hw": list(JPEG_PHOTO_HW), "megapixels": mp,
-                            "make_seconds": time.perf_counter() - t0}
+                            "make_seconds": time.perf_counter() - t0,
+                            "write_webp_ms": statistics.median(webp_write_s) * 1e3}
             for k in FORMAT_PHOTO_KINDS:
                 files = sorted(str(p_) for p_ in (photo / k).glob("*.tif"))
                 read_s = []
@@ -1616,10 +1686,24 @@ def main(argv=None) -> int:
                 rec["photo"][k] = {"mean_bytes": statistics.mean(Path(f).stat().st_size for f in files),
                                    "read_tiff_ms": statistics.median(read_s) * 1e3,
                                    "read_tiff_mp_per_s": mp / statistics.median(read_s)}
+            t0 = time.perf_counter()
+            files = sorted(str(p_) for p_ in (photo / "webp").glob("*.webp"))
+            read_s = []
+            for f in files[:3]:
+                t1 = time.perf_counter()
+                img = twebp.read_webp(f).pixels
+                read_s.append(time.perf_counter() - t1)
+            require(img.shape == (*JPEG_PHOTO_HW, 3), f"a lossless WebP photo frame decodes to {img.shape}")
+            del img
+            rec["photo"]["webp"] = {"mean_bytes": statistics.mean(Path(f).stat().st_size for f in files),
+                                    "read_webp_ms": statistics.median(read_s) * 1e3,
+                                    "read_webp_mp_per_s": mp / statistics.median(read_s)}
+            webp_seconds += time.perf_counter() - t0
             # decode_to_canvas of each kind with each worker count, in turn
             # in one fresh process (its import is paid once)
-            pairs = [(k, w) for k in FORMAT_PHOTO_KINDS for w in JPEG_WORKERS]
-            runs = photo_decode_runs(ROOT, [(str(photo / k / "*.tif"), w) for k, w in pairs])
+            pairs = [(k, w) for k in FORMAT_PHOTO_KINDS + ("webp",) for w in JPEG_WORKERS]
+            runs = photo_decode_runs(ROOT, [(str(photo / k / ("*.webp" if k == "webp" else "*.tif")), w)
+                                            for k, w in pairs])
             for (k, w), r in zip(pairs, runs):
                 r.update(ms_per_image=r["seconds"] / r["frames"] * 1e3, mp_per_s=r["frames"] * mp / r["seconds"])
                 rec["photo"][k].setdefault("decode_to_canvas", {})[str(w)] = r
@@ -1627,6 +1711,8 @@ def main(argv=None) -> int:
             require(len({r["sha256"] for r in runs}) == 1,
                     "the photo frames' canvases differ between kinds or worker counts")
             shutil.rmtree(photo)
+            webp_seconds += sum(r["seconds"] for (k, _), r in zip(pairs, runs) if k == "webp")
+            rec["webp_seconds"] = webp_seconds
 
     if "mapping" in phases:
         with phase("mapping", {}) as rec:

@@ -541,8 +541,7 @@ def _queued_files(tmp_path) -> dict:
 
 
 QUEUED = ("ccitt_g4.tif", "old_jpeg.tif", "ycbcr_raw.tif", "lab.tif", "pa.tif", "gray12.tif", "float_mm_deflate.tif",
-          "bigtiff.tif", "rgba16_assoc.tif", "rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif",
-          "frame.webp")
+          "bigtiff.tif", "rgba16_assoc.tif", "rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif")
 
 
 @pytest.mark.parametrize("name", QUEUED)
@@ -557,6 +556,16 @@ def test_queued_kinds_raise_naming_the_file(name, tmp_path):
     if name != "rle_delta.bmp":  # the header reads; the delta shows only in the data
         with pytest.raises(ValueError, match="not read yet"):
             formats.pil_mode(path)
+
+
+def test_webp_frame_decodes_as_pil(tmp_path):
+    """A WebP was queued; the port now reads it (tests/test_torch_webp.py
+    holds every kind): PIL's pixels, mode and size."""
+    path = _queued_files(tmp_path)["frame.webp"]
+    with Image.open(path) as im:
+        want, mode, size = np.asarray(im), im.mode, im.size
+    assert (formats.pil_mode(path), formats.image_size(path)) == (mode, size)
+    assert np.array_equal(timg.read_image(path), want)
 
 
 def _refused_files(tmp_path) -> dict:
