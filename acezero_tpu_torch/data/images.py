@@ -10,8 +10,14 @@ RGB and 1-bit gray to 0/255). JPEG files decode in io/csrc/jpeg.cpp
 (io/jpeg.py) to PIL's own pixels; a four-component JPEG comes back as a
 `CmykImage`, so its mode travels with it. WebP files decode in
 io/csrc/webp.cpp (io/webp.py) to PIL's RGB or RGBA array of the first
-frame. PNG, TIFF (io/tiff.py), BMP (io/bmp.py) and Netpbm/PFM
-(io/pnm.py) files decode to an array whose
+frame. GIF files decode in io/csrc/gif.cpp (io/gif.py) to PIL's frame 0,
+a `ModeImage` of mode P (the indices, the palette and the transparency
+index) or L (the grey levels and the transparency index, which an array
+cannot carry; and the global palette that PIL keeps under a local grey
+ramp, which its `convert("RGB")` goes through while its `convert("L")` is
+a copy of the grey levels and its BILINEAR `resize` raises). PNG, TIFF
+(io/tiff.py), BMP (io/bmp.py) and Netpbm/PFM (io/pnm.py) files decode to
+an array whose
 dtype tells PIL's mode (bool 1, uint8 L, LA, RGB or RGBA, uint16 I;16,
 int32 I, float32 F), a `CmykImage`, or a `ModeImage` where it does not (P
 with its palette, I;16B). Anything else raises ValueError naming the
@@ -67,7 +73,7 @@ from pathlib import Path
 import numpy as np
 
 from acezero_tpu_torch.data import native
-from acezero_tpu_torch.io import bmp, formats, pnm, tiff, webp
+from acezero_tpu_torch.io import bmp, formats, gif, pnm, tiff, webp
 from acezero_tpu_torch.io.formats import PNG_SIGNATURE as _PNG_SIGNATURE
 from acezero_tpu_torch.io.formats import image_size
 from acezero_tpu_torch.io.jpeg import read_jpeg
@@ -253,13 +259,17 @@ class CmykImage:
 class ModeImage:
     """A decoded image whose PIL mode its array does not tell: mode "P"
     (`pixels` the (h, w) uint8 palette indices, `palette` the (n, 3) uint8
-    colours; an index past the palette is black, as Pillow makes it) or
+    colours; an index past the palette is black, as Pillow makes it),
     "I;16B" (`pixels` the (h, w) uint16 values, which `np.asarray` of PIL's
-    image gives as big-endian uint16)."""
+    image gives as big-endian uint16), or a GIF's "L" (`pixels` the (h, w)
+    uint8 grey levels; `palette` the global palette PIL keeps under a local
+    grey ramp, or None). `transparency` is a GIF's transparency index (PIL's
+    `info["transparency"]`), which the Nerfstudio runner writes back."""
 
     pixels: np.ndarray
     mode: str
     palette: np.ndarray | None = None
+    transparency: int | None = None
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -268,8 +278,8 @@ class ModeImage:
 
 def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     """Decode a PNG (`read_png`), JPEG (io/jpeg.py::read_jpeg), TIFF, BMP,
-    Netpbm/PFM or WebP file, told apart by its signature (module note).
-    Anything else raises ValueError."""
+    Netpbm/PFM, WebP or GIF file, told apart by its signature (module
+    note). Anything else raises ValueError."""
     kind = formats.file_kind(path)
     if kind == "png":
         img, palette = _read_png_samples(path)
@@ -277,6 +287,9 @@ def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     if kind == "jpeg":
         img = read_jpeg(path)
         return CmykImage(img) if img.ndim == 3 and img.shape[2] == 4 else img
+    if kind == "gif":
+        r = gif.read_gif(path)
+        return ModeImage(r.pixels, r.mode, r.palette, r.transparency)
     if kind in ("tiff", "bmp", "pnm", "webp"):
         r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm, "webp": webp.read_webp}[kind](path)
         if r.mode == "CMYK":
@@ -304,7 +317,7 @@ def palette_rgb(img: ModeImage) -> np.ndarray:
     lut = np.zeros((256, 3), np.uint8)
     pal = np.asarray(img.palette, np.uint8).reshape(-1, 3)[:256]
     lut[: len(pal)] = pal
-    return lut[img.pixels]
+    return np.take(lut, img.pixels, axis=0)  # a gather: faster than lut[pixels]
 
 
 def pil_uint8(img):
@@ -312,7 +325,8 @@ def pil_uint8(img):
     I;16B), I (int32) and F (float32) clipped to 0-255 (F truncated), as
     `convert("L")` makes them; mode 1 as 0 and 255; 16-bit colour (a PNG's)
     as each sample's high byte, as PIL opens it; mode P through its palette
-    (`palette_rgb`). 8-bit images and `CmykImage`s come back as they are."""
+    (`palette_rgb`); a GIF's mode L as its grey levels. 8-bit images and
+    `CmykImage`s come back as they are."""
     if isinstance(img, ModeImage):
         return palette_rgb(img) if img.mode == "P" else np.minimum(img.pixels, 255).astype(np.uint8)
     if isinstance(img, CmykImage) or img.dtype == np.uint8:
@@ -333,9 +347,11 @@ def pil_rgb(img) -> np.ndarray:
     """PIL's `convert("RGB")` of an 8-bit image: gray is replicated,
     gray+alpha and RGBA drop alpha (no compositing), and CMYK becomes
     Pillow's cmyk2rgb: R = (255 - K) - C (255 - K) / 255, the product
-    rounded as its MULDIV255 rounds it, G and B likewise from M and Y."""
+    rounded as its MULDIV255 rounds it, G and B likewise from M and Y. A
+    `ModeImage` with a palette (P, or a GIF's L with the palette kept under
+    it) goes through its palette."""
     if isinstance(img, ModeImage):
-        return pil_rgb(pil_uint8(img))
+        return palette_rgb(img) if img.palette is not None else pil_rgb(pil_uint8(img))
     if isinstance(img, CmykImage):
         px = img.pixels.astype(np.int32)
         nk = 255 - px[..., 3:]
@@ -350,8 +366,10 @@ def pil_rgb(img) -> np.ndarray:
 
 def read_rgb(path) -> np.ndarray:
     """(h, w, 3) uint8, as PIL's `Image.open(path).convert("RGB")`
-    (`pil_rgb` of `pil_uint8`), of any file `read_image` reads."""
-    return pil_rgb(pil_uint8(read_image(path)))
+    (`pil_rgb` of `pil_uint8`, of a `ModeImage` itself), of any file
+    `read_image` reads."""
+    img = read_image(path)
+    return pil_rgb(img if isinstance(img, ModeImage) else pil_uint8(img))
 
 
 def pil_luma_u8(img) -> np.ndarray:
@@ -725,7 +743,11 @@ def decode_to_canvas(
             raise ValueError(f"{paths[i]}: decoded {raw.shape[:2]}, its header says {tuple(orig_sizes[i])}")
         h, w = (int(s) for s in sizes[i])
         if oversize:
-            img = pil_resize_bilinear(pil_luma_u8(raw), h, w)
+            if isinstance(raw, ModeImage) and raw.mode == "L" and raw.palette is not None:
+                # convert("L") copies it as mode P, which resize takes NEAREST
+                img = pil_resize_nearest(raw.pixels, h, w)
+            else:
+                img = pil_resize_bilinear(pil_luma_u8(raw), h, w)
             top, left = max(0, (h - hc) // 2), max(0, (w - wc) // 2)
             img = img[top : top + min(h, hc), left : left + min(w, wc)]
             h, w = img.shape

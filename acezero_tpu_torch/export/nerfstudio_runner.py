@@ -15,19 +15,23 @@ BILINEAR)` gives for any source the port reads, in the mode PIL opens it in
 io/jpeg.py (PIL's default quality 75 and sampling, PIL's bytes), a TIFF by
 io/tiff.py (uncompressed, as PIL's default), a BMP by io/bmp.py (PIL's
 bytes), a PBM/PGM/PPM/PFM by io/pnm.py (PIL's bytes), a WebP by
-io/webp.py (lossless, see below), a PNG by io/png.py (PIL's mode and
-pixels, other bytes). Modes L, RGB and CMYK take Pillow's
+io/webp.py (lossless, see below), a GIF by io/gif.py (mode P or L, its
+palette and transparency index as PIL's save remaps them, so that it reads
+back as PIL's own file does; other bytes), a PNG by io/png.py (PIL's mode
+and pixels, other bytes); a suffix the port has no writer for raises
+OSError (PIL raises for a suffix it does not know, and writes the other
+formats it knows). Modes L, RGB and CMYK take Pillow's
 8-bit bilinear resize (data/images.py::pil_resize_bilinear), I;16 and
 I;16B its 16-bit one (I;16B's bytes taken in the wrong order, as Pillow
 takes them on a little-endian host), I and F its 32-bit one; LA and RGBA are
 premultiplied by alpha, resized and unpremultiplied, as Pillow does;
 16-bit colour is first made 8-bit as PIL opens it (`pil_uint8`). Modes P
 and 1 take Pillow's nearest-neighbour resize, on the palette indices or
-booleans of a TIFF or BMP (the palette kept), and on the pixels read_png
-gives a PNG: a palette PNG comes out as RGB, a 1-bit one as 8-bit gray of
-0 and 255, where PIL keeps the palette and the 1-bit mode (the same pixels
-after PIL's `convert("RGB")` or `convert("L")`). A mode the format cannot
-hold raises OSError, as PIL's save does.
+booleans (the palette kept). A GIF's transparency index goes with the
+image, as `info["transparency"]` goes with PIL's resize; a GIF of mode L
+that keeps a global palette under a local grey ramp raises ValueError, as
+PIL's BILINEAR resize of it does. A mode the format cannot hold raises
+OSError, as PIL's save does.
 
 PIL's save of a TIFF it opened keeps the source's compression. The port
 writes every TIFF uncompressed, which PIL reads back to the same mode and
@@ -67,6 +71,7 @@ from acezero_tpu_torch.data.images import (
 from acezero_tpu_torch.export.nerf import export_transforms_json
 from acezero_tpu_torch.io import tiff
 from acezero_tpu_torch.io.bmp import write_bmp
+from acezero_tpu_torch.io.gif import write_gif
 from acezero_tpu_torch.io.formats import image_size, pil_mode
 from acezero_tpu_torch.io.jpeg import write_jpeg
 from acezero_tpu_torch.io.png import write_png
@@ -82,6 +87,7 @@ JPEG_SUFFIXES = (".jpg", ".jpeg", ".jpe", ".jfif")  # PIL picks the format to sa
 JPEG_MODES = ("1", "L", "RGB", "CMYK")  # the modes that PIL saves as JPEG (1 as gray of 0 and 255)
 TIFF_SUFFIXES = (".tif", ".tiff")
 PNM_SUFFIXES = (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")
+PNG_SUFFIXES = (".png", ".apng")
 _LIBTIFF_WRITES = (tiff.LZW, tiff.PACKBITS, *tiff.DEFLATE)  # compressions PIL's save hands to libtiff
 
 
@@ -104,20 +110,24 @@ def _require_cli(name: str) -> str:
     return path
 
 
-def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.ndarray | None]:
+def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.ndarray | None, int | None]:
     """PIL's `Image.open(src).resize((new_w, new_h), BILINEAR)`: its pixels
-    (module note), the mode PIL opened the file in, and the palette of a
-    mode-P TIFF or BMP (None otherwise)."""
+    (module note), the mode PIL opened the file in, the palette of a mode-P
+    image (None otherwise) and a GIF's transparency index (None
+    otherwise)."""
     mode = pil_mode(src)
     img = read_image(src)
     palette = img.palette if isinstance(img, ModeImage) else None
+    transparency = img.transparency if isinstance(img, ModeImage) else None
     if mode in ("P", "1"):  # Pillow resizes these nearest-neighbour whatever filter is asked for
-        return pil_resize_nearest(pil_array(img), new_h, new_w), mode, palette
+        return pil_resize_nearest(pil_array(img), new_h, new_w), mode, palette, transparency
+    if mode == "L" and palette is not None:
+        raise ValueError(f"{src}: image has wrong mode (a GIF of mode L over a palette, as PIL's resize says)")
     if mode == "I;16B":  # Pillow resamples the big-endian samples as little-endian ones
         out = pil_resize_bilinear(img.pixels.byteswap(), new_h, new_w).byteswap()
         if src.suffix.lower() in TIFF_SUFFIXES and tiff.tiff_compression(src) in _LIBTIFF_WRITES:
             mode = "I;16"  # libtiff's file of it reads back as I;16
-        return out, mode, None
+        return out, mode, None, None
     if isinstance(img, CmykImage):
         img = img.pixels
     elif mode not in ("I;16", "I", "F"):  # 16-bit colour opens as 8-bit
@@ -125,15 +135,17 @@ def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.nda
     if mode == "RGBA" and img.shape[2] == 2:  # 16-bit gray+alpha opens as RGBA
         img = img[..., [0, 0, 0, 1]]
     if mode in ("LA", "RGBA"):
-        return pil_unpremultiply(pil_resize_bilinear(pil_premultiply(img), new_h, new_w)), mode, None
-    return pil_resize_bilinear(img, new_h, new_w), mode, None
+        return pil_unpremultiply(pil_resize_bilinear(pil_premultiply(img), new_h, new_w)), mode, None, None
+    return pil_resize_bilinear(img, new_h, new_w), mode, None, transparency
 
 
-def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = None) -> None:
-    """PIL's `img.save(dst)` of an image of `mode`, its format picked by the
-    name: a JPEG, TIFF, BMP, PBM/PGM/PPM/PFM or WebP (lossless RGB or RGBA,
-    where PIL writes lossy VP8: module note) for their suffixes, a PNG
-    otherwise."""
+def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = None,
+          transparency: int | None = None) -> None:
+    """PIL's `img.save(dst)` of an image of `mode` (with `info["transparency"]`
+    = `transparency`), its format picked by the name: a JPEG, TIFF, BMP,
+    PBM/PGM/PPM/PFM, WebP (lossless RGB or RGBA, where PIL writes lossy VP8:
+    module note), GIF or PNG for their suffixes; any other suffix raises
+    OSError."""
     suffix = dst.suffix.lower()
     if suffix in JPEG_SUFFIXES:
         if mode not in JPEG_MODES:
@@ -149,8 +161,12 @@ def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = No
         if mode not in ("RGB", "RGBA"):
             raise OSError(f"cannot write mode {mode} as WebP")
         write_webp(dst, img)
-    else:
+    elif suffix == ".gif":
+        write_gif(dst, img, mode, palette, transparency)
+    elif suffix in PNG_SUFFIXES:
         write_png(dst, img, palette)
+    else:
+        raise OSError(f"{dst}: the port writes no image format of suffix {suffix!r}")
 
 
 def _downscale_images(transforms_path: Path, workdir: Path) -> None:

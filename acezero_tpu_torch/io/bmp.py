@@ -8,13 +8,18 @@ ones, V4's 108 and V5's 124), top-down and bottom-up rows, 1, 4 and 8 bits
 through a palette, 16 bits (5-5-5, or 5-6-5 under BI_BITFIELDS), 24 bits,
 32 bits (its fourth byte ignored, as PIL does, unless BI_BITFIELDS gives
 an alpha mask: then RGBA), and RLE8 and RLE4 (io/csrc/tiff.cpp's
-acz_bmp_rle, Pillow's decoder step for step). A palette of gray levels
-makes mode 1 (two entries, black and white) or L (entry i gray level i),
-as PIL ditches such palettes; any other makes mode P. Uncompressed data is
-decoded in numpy. What PIL refuses raises ValueError naming the file, and
-so do the few files PIL opens to pixels that its own raw decoder misreads
-(a gray palette of other sizes than 2 or 256 levels for the bit depth, an
-RLE delta escape); ROADMAP.md queues them.
+acz_bmp_rle, Pillow's decoder step for step, its delta escape included:
+Pillow skips the two bytes after the escape and takes the next two as the
+offsets). A palette of gray levels makes mode 1 (two entries, black and
+white) or L (entry i gray level i), as PIL ditches such palettes; any
+other makes mode P. PIL then reads the rows with the rawmode of the new
+mode whatever the bit depth: mode 1 one bit a pixel from each row's first
+bytes, mode L one byte a pixel; an L image's rows are mapped from the file
+(`ImageFile.load`'s mmap path) at the bit depth's row stride, so a row of
+more bytes than the stride runs into the next one, and past the file's end
+into zeros; where the file is shorter than its rows, PIL's raw decoder
+refuses such rows. Uncompressed data is decoded in numpy. What PIL refuses
+raises ValueError naming the file.
 
 `write_bmp(path, img, mode)` writes PIL's bytes for modes 1, L, P, RGB and
 RGBA (BITMAPINFOHEADER, 96 dpi, bottom-up rows padded to 4 bytes; RGBA as
@@ -126,8 +131,10 @@ def _info(f, path) -> dict:
         levels = (0, 255) if colors == 2 else range(colors)
         if all(pal[i * pad: i * pad + 3] == bytes([v]) * 3 for i, v in enumerate(levels)):
             mode = "1" if colors == 2 else "L"  # PIL ditches a palette of gray levels
-            if (mode, bits, rawmode) not in (("1", 1, "P;1"), ("L", 8, "P"), ("L", 8, "rle"), ("L", 4, "rle")):
-                raise ValueError(f"{path}: BMP kind {bits}-bit gray palette of {colors} levels is not read yet")
+            if rawmode == "rle" and mode == "1":
+                raise ValueError(f"{path}: PIL does not load an RLE BMP of two gray levels (unknown raw mode)")
+            if rawmode != "rle":
+                rawmode = mode  # read at one bit (1) or one byte (L) a pixel, whatever the bit depth
         else:
             entries = np.frombuffer(pal[: len(pal) // pad * pad], np.uint8).reshape(-1, pad)
             info["palette"] = np.ascontiguousarray(entries[:, 2::-1])  # BGR(X) -> RGB
@@ -152,20 +159,30 @@ def read_bmp(path) -> Raster:
         info = _info(f, path)
     data = np.fromfile(path, np.uint8)
     w, h, bits, rawmode = info["width"], info["height"], info["bits"], info["rawmode"]
+    start = info["offset"]
+    stride = ((w * bits + 31) >> 3) & ~3
     if rawmode == "rle":
-        px = bmp_rle(data, info["offset"], info["compression"] == RLE4, w, h, path)
-    else:
-        stride = ((w * bits + 31) >> 3) & ~3
-        start = info["offset"]
-        if data.size < start + stride * h:
-            raise ValueError(f"{path}: truncated BMP ({data.size} bytes, the pixels need {start + stride * h})")
+        px = bmp_rle(data, start, info["compression"] == RLE4, w, h, path)
+    elif rawmode == "L" and data.size >= start + stride * h:  # mapped rows of w bytes, `stride` apart
+        padded = data if w <= stride else np.concatenate([data, np.zeros(w - stride, np.uint8)])
+        px = np.lib.stride_tricks.as_strided(padded[start:], shape=(h, w), strides=(stride, 1), writeable=False)
+    else:  # the raw decoder: rows of `row` bytes, `stride` apart
+        row = (w * {"1": 1, "L": 8}.get(rawmode, bits) + 7) // 8
+        if row > stride:
+            raise ValueError(f"{path}: PIL's raw decoder refuses rows of {row} bytes in a stride of {stride}")
+        if data.size < start + stride * (h - 1) + row:
+            raise ValueError(f"{path}: truncated BMP ({data.size} bytes, the pixels need {start + stride * (h - 1) + row})")
+        if data.size < start + stride * h:  # the last row's padding is not needed
+            data = np.concatenate([data, np.zeros(stride, np.uint8)])
         rows = data[start: start + stride * h].reshape(h, stride)
-        if bits < 8:
+        if rawmode == "1":
+            px = np.unpackbits(rows[:, :row], axis=1)[:, :w]
+        elif rawmode == "L" or bits == 8:
+            px = rows[:, :w]
+        elif bits < 8:
             per = 8 // bits
             shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
             px = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)[:, :w].astype(np.uint8)
-        elif bits == 8:
-            px = rows[:, :w]
         elif bits == 16:
             v = rows[:, : 2 * w].copy().view("<u2").reshape(h, w).astype(np.int32)
             if rawmode == "BGR;16":

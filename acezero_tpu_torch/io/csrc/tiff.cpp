@@ -18,7 +18,9 @@
 // step, so RLE8 and RLE4 bitmaps give PIL's bytes, its quirks included: an
 // absolute run of RLE4 reads count // 2 bytes, runs are clipped to the row
 // only in encoded mode, and the word alignment is that of the position in
-// the file. A delta escape, which Pillow reads wrongly, fails.
+// the file. A delta escape skips the two bytes after it and takes the next
+// two as (right, up): right + up * width zero pixels, the column then
+// where they end; where those two are cut short Pillow's unpacking fails.
 //
 // Every function is integer arithmetic: the same bits on every host.
 
@@ -297,8 +299,14 @@ int64_t acz_bmp_rle(const uint8_t* file, size_t file_size, size_t start, int rle
         x = 0;
       } else if (byte == 1) {  // end of bitmap
         break;
-      } else if (byte == 2) {
-        fail("RLE delta escape (Pillow reads the wrong bytes for it)");
+      } else if (byte == 2) {  // delta
+        if (pos + 2 > file_size) break;
+        pos += 2;
+        if (pos + 2 > file_size) fail("truncated BMP RLE delta (PIL's unpacking of it fails)");
+        const int64_t right = file[pos], up = file[pos + 1];
+        pos += 2;
+        data.resize(data.size() + static_cast<size_t>(right + up * xsize), 0);
+        x = static_cast<int64_t>(data.size() % static_cast<size_t>(xsize));
       } else {  // absolute mode
         const size_t want = rle4 ? static_cast<size_t>(byte / 2) : static_cast<size_t>(byte);
         const size_t avail = pos <= file_size ? file_size - pos : 0;

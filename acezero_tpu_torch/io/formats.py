@@ -1,19 +1,24 @@
 """Image file kinds, told apart by their signatures, and what PIL makes of
 them without decoding: `image_size` (PIL's `Image.open(path).size`) and
 `pil_mode` (the mode PIL opens the file in), read from the headers of PNG,
-JPEG, TIFF (io/tiff.py), BMP (io/bmp.py), Netpbm/PFM (io/pnm.py) and WebP
+JPEG, TIFF (io/tiff.py), BMP (io/bmp.py), Netpbm/PFM (io/pnm.py), WebP
 (io/webp.py, after the container checks libwebp makes when PIL opens it)
-files. A file PIL does not open, or opens as a kind the port does not read
-yet, raises ValueError naming the file and the kind.
+and GIF (io/gif.py, PIL's frame 0) files. A file PIL does not open, or
+opens as a kind the port does not read yet, raises ValueError naming the
+file and the kind.
 
-`Raster` is what the TIFF, BMP, PNM and WebP readers return: the pixels of
-`np.asarray(Image.open(path))` (for mode P the palette indices, for I;16B
-the values as native uint16), PIL's mode, and for mode P the palette.
+`Raster` is what the TIFF, BMP, PNM, WebP and GIF readers return: the
+pixels of `np.asarray(Image.open(path))` (for mode P the palette indices,
+for I;16B the values as native uint16), PIL's mode, for mode P the
+palette, and a GIF's transparency index (PIL's `info["transparency"]`).
 data/images.py::read_image turns it into the port's image types.
 """
 
 from __future__ import annotations
 
+import contextlib
+import mmap
+import os
 import struct
 from pathlib import Path
 from typing import NamedTuple
@@ -30,14 +35,13 @@ _PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16
               (16, 6): "RGBA"}
 _JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}  # by component count
 # signatures of formats PIL opens that the port does not read yet (ROADMAP.md's queue)
-_QUEUED = ((b"GIF87a", 0, b"", "GIF"), (b"GIF89a", 0, b"", "GIF"),
-           (b"\x00\x00\x00\x0cjP  ", 0, b"", "JPEG 2000"), (b"\xffO\xffQ", 0, b"", "JPEG 2000"),
+_QUEUED = ((b"\x00\x00\x00\x0cjP  ", 0, b"", "JPEG 2000"), (b"\xffO\xffQ", 0, b"", "JPEG 2000"),
            (b"8BPS", 0, b"", "PSD"), (b"qoif", 0, b"", "QOI"), (b"DDS ", 0, b"", "DDS"),
            (b"\x00\x00\x01\x00", 0, b"", "ICO"), (b"icns", 0, b"", "ICNS"), (b"SIMPLE  =", 0, b"", "FITS"))
 
 
 # PIL's Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as many
-# pixels (a decompression bomb), and so do the TIFF, BMP, PNM and WebP readers
+# pixels (a decompression bomb), and so do the TIFF, BMP, PNM, WebP and GIF readers
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
 
 
@@ -48,21 +52,35 @@ def check_size(width: int, height: int, path) -> None:
         raise ValueError(f"{path}: PIL does not open an image of {width} x {height} pixels (a decompression bomb)")
 
 
+@contextlib.contextmanager
+def mapped(path):
+    """The file's bytes, memory-mapped (an empty file as b""); no view of
+    them may outlive the `with`."""
+    with open(path, "rb") as f:
+        if os.fstat(f.fileno()).st_size == 0:
+            yield b""
+            return
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+            yield m
+
+
 class Raster(NamedTuple):
-    """A decoded TIFF, BMP, PNM or WebP image: `pixels` as `np.asarray` of PIL's
-    image gives them (I;16B as native uint16), PIL's `mode`, and the
-    (n, 3) uint8 `palette` of a mode-P image (None otherwise)."""
+    """A decoded TIFF, BMP, PNM, WebP or GIF image: `pixels` as `np.asarray`
+    of PIL's image gives them (I;16B as native uint16), PIL's `mode`, the
+    (n, 3) uint8 `palette` of a mode-P image (None otherwise), and a GIF's
+    `transparency` index (None otherwise)."""
 
     pixels: np.ndarray
     mode: str
     palette: np.ndarray | None = None
+    transparency: int | None = None
 
 
 def kind(head: bytes) -> str | None:
     """The file kind its first bytes show: "png", "jpeg", "tiff", "bmp",
     "pnm", "webp" (RIFF, WEBP and a VP8, VP8L or VP8X chunk: Pillow's
-    test), or None."""
-    from acezero_tpu_torch.io import bmp, pnm, tiff, webp
+    test), "gif" (GIF87a or GIF89a), or None."""
+    from acezero_tpu_torch.io import bmp, gif, pnm, tiff, webp
 
     if head.startswith(PNG_SIGNATURE):
         return "png"
@@ -76,6 +94,8 @@ def kind(head: bytes) -> str | None:
         return "pnm"
     if webp.is_webp(head):
         return "webp"
+    if gif.is_gif(head):
+        return "gif"
     return None
 
 
@@ -91,8 +111,8 @@ def refusal(path) -> str:
         head = f.read(16)
     for sig, at, sub, name in _QUEUED:
         if head.startswith(sig) and head[at: at + len(sub)] == sub:
-            return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM or WebP file: {name}, not read yet"
-    return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM or WebP file"
+            return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP or GIF file: {name}, not read yet"
+    return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP or GIF file"
 
 
 def _jpeg_frame(f, path) -> tuple[int, int, int]:
@@ -123,7 +143,7 @@ def _jpeg_frame(f, path) -> tuple[int, int, int]:
 
 def header(path) -> tuple[int, int, str]:
     """(width, height, PIL's mode) of an image file, from its header."""
-    from acezero_tpu_torch.io import bmp, pnm, tiff, webp
+    from acezero_tpu_torch.io import bmp, gif, pnm, tiff, webp
 
     with open(path, "rb") as f:
         head = f.read(26)
@@ -147,6 +167,8 @@ def header(path) -> tuple[int, int, str]:
         return pnm.pnm_header(path)
     if k == "webp":
         return webp.webp_header(path)
+    if k == "gif":
+        return gif.gif_header(path)[:3]
     raise ValueError(refusal(path))
 
 
@@ -158,6 +180,6 @@ def image_size(path: str | Path) -> tuple[int, int]:
 def pil_mode(path: str | Path) -> str:
     """The mode PIL opens an image file in: for a PNG "1", "L", "I;16",
     "RGB", "P", "LA" or "RGBA" (16-bit gray+alpha opens as RGBA), for a JPEG
-    "L", "RGB" or "CMYK"; for a WebP "RGB" or "RGBA"; for TIFF, BMP and PNM
-    files what their readers give. A file PIL does not open raises ValueError."""
+    "L", "RGB" or "CMYK"; for a WebP "RGB" or "RGBA"; for a GIF "P" or "L";
+    for TIFF, BMP and PNM files what their readers give. A file PIL does not open raises ValueError."""
     return header(path)[2]

@@ -8,14 +8,15 @@ pixels of `np.asarray(Image.open(path))`:
   - P2 and P5: mode L up to maxval 255, mode I (int32) above it;
   - P3 and P6: mode RGB, at any maxval;
   - Pf: mode F (float32), rows bottom-up, little-endian when the scale is
-    negative, big-endian otherwise. PIL does not open colour PFM (PF).
+    negative, big-endian otherwise. PIL does not open colour PFM (PF);
+  - Pillow's own binary kinds: P0CMYK and PyCMYK mode CMYK, PyRGBA mode
+    RGBA, PyP mode P with an empty palette (so its colours are black).
 A maxval other than 255 (and, in P5, 65535) scales each value to 255, or
 to 65535 for mode I, with Python's round (half to even), as Pillow's
 decoders do; the binary decoder clips values above maxval, the plain one
 refuses them. The plain formats' tokens and comments are parsed as
 Pillow's PpmPlainDecoder parses them. What PIL refuses raises ValueError
-naming the file, and so do Pillow's own extensions (P0CMYK, PyP, PyRGBA,
-PyCMYK), which the port does not read yet; ROADMAP.md queues them.
+naming the file.
 
 `write_pnm(path, img, mode)` writes PIL's bytes: mode 1 as P4, L as P5
 (maxval 255), I and I;16 as P5 (maxval 65535, I clipped to 0-65535), RGB
@@ -33,8 +34,9 @@ import numpy as np
 
 from acezero_tpu_torch.io.formats import Raster, check_size
 
-MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB", b"Pf": "F"}
-_PILLOW_ONLY = (b"P0CMYK", b"PyP", b"PyRGBA", b"PyCMYK")
+MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB", b"Pf": "F",
+         b"P0CMYK": "CMYK", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+BANDS = {"RGB": 3, "RGBA": 4, "CMYK": 4}  # samples a pixel; 1 for the other modes
 _WHITESPACE = b" \t\n\x0b\x0c\r"
 _COMMENT = re.compile(rb"#[^\r\n]*[\r\n]?")
 
@@ -54,8 +56,6 @@ def _header(data: bytes, path) -> tuple[str, str, int, int, float | int, int]:
         if c in _WHITESPACE:
             break
         magic += c
-    if magic in _PILLOW_ONLY:
-        raise ValueError(f"{path}: Pillow's own PPM kind {magic.decode()} is not read yet")
     if magic not in MODES:
         raise ValueError(f"{path}: PIL does not open this Netpbm file (magic {magic!r})")
 
@@ -120,7 +120,7 @@ def read_pnm(path) -> Raster:
     """Decode a Netpbm or PFM file as PIL opens it (module note)."""
     data = Path(path).read_bytes()
     magic, mode, w, h, maxval, pos = _header(data, path)
-    bands = 3 if mode == "RGB" else 1
+    bands = BANDS.get(mode, 1)
     n = w * h * bands
     body = data[pos:]
     if magic == "P1":
@@ -168,7 +168,8 @@ def read_pnm(path) -> Raster:
         out = vals
     else:
         out = np.minimum(255, _scale(vals, maxval, 255)).astype(np.uint8)
-    return Raster(np.ascontiguousarray(out).reshape((h, w, 3) if bands == 3 else (h, w)), mode)
+    out = np.ascontiguousarray(out).reshape((h, w, bands) if bands > 1 else (h, w))
+    return Raster(out, mode, np.zeros((0, 3), np.uint8) if mode == "P" else None)
 
 
 def encode_pnm(img: np.ndarray, mode: str) -> bytes:

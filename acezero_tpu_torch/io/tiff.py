@@ -160,7 +160,7 @@ def bmp_rle(data: np.ndarray, start: int, rle4: bool, width: int, height: int, p
     n = _lib().acz_bmp_rle(data.ctypes.data, data.size, start, int(rle4), width, out.ctypes.data, cap, err,
                            _ERR_BYTES)
     if n < 0:
-        raise ValueError(f"{path}: BMP kind {err.value.decode(errors='replace')} is not read yet")
+        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
     if n < cap:
         raise ValueError(f"{path}: truncated BMP RLE data ({n} of {cap} pixels)")
     return out.reshape(height, width)

@@ -24,17 +24,14 @@ the same pixels in the same mode.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-import mmap
-import os
 import struct
 from pathlib import Path
 
 import numpy as np
 
-from acezero_tpu_torch.io.formats import Raster, check_size
+from acezero_tpu_torch.io.formats import Raster, check_size, mapped
 from acezero_tpu_torch.ops import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "webp.cpp"
@@ -467,28 +464,17 @@ def _open(b, path):
     return dmux, "RGBA" if feats["has_alpha"] else "RGB"
 
 
-@contextlib.contextmanager
-def _mapped(path):
-    """The file's bytes, memory-mapped (an empty file as b"")."""
-    with open(path, "rb") as f:
-        if os.fstat(f.fileno()).st_size == 0:
-            yield b""
-            return
-        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
-            yield m
-
-
 def webp_header(path) -> tuple[int, int, str]:
     """(width, height, PIL's mode) of a WebP file: the canvas's size, and RGB
     or RGBA."""
-    with _mapped(path) as b:
+    with mapped(path) as b:
         dmux, mode = _open(b, path)
     return dmux.canvas[0], dmux.canvas[1], mode
 
 
 def read_webp(path) -> Raster:
     """The first frame of a WebP file as PIL gives it (module note)."""
-    with _mapped(path) as b:
+    with mapped(path) as b:
         mode, canvas, rc, err = _decode_first_frame(b, path)
     if rc:
         raise ValueError(f"{path}: {err.value.decode(errors='replace')}")

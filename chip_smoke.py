@@ -8,14 +8,19 @@ Needs one NVIDIA card (Hopper, for the sm_90a kernels) and nvcc; exits
 non-zero without a result when CUDA is absent or the port is not beside
 this script. Every phase prints a flushed JSON line when it starts and when
 it ends, with its wall seconds; the first failure raises and ends the run.
+Phases 6, 7 and 9-16 run as PARALLEL_GROUPS, each group in a child process
+of this script, the groups at once on the card (phase `parallel`, with the
+groups' wall seconds; a child's lines are relayed as they come); the other
+phases run in this process, alone.
 
 Phases:
   0 device    the card, its power limit, the torch/CUDA versions
   1 build     nvcc builds every kernel of the paths from csrc/, in parallel,
               and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp),
               the canvas pass (data/csrc/canvas.cpp), the TIFF and BMP
-              codecs (io/csrc/tiff.cpp) and the WebP codec
-              (io/csrc/webp.cpp), with the compiler's version and seconds
+              codecs (io/csrc/tiff.cpp), the WebP codec (io/csrc/webp.cpp)
+              and the GIF codec (io/csrc/gif.cpp), with the compiler's
+              version and seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
               events, median) and resources: K1 (head chain forward) and K2
@@ -52,7 +57,20 @@ Phases:
               ms and MP/s on the committed lossy photo and on a lossless
               frame of JPEG_PHOTO_HW, and decode_to_canvas of
               FORMAT_PHOTO_FRAMES such frames in the same fresh process as
-              the TIFF runs (the canvases equal the TIFF frames')
+              the TIFF runs (the canvases equal the TIFF frames'); then GIF
+              (io/gif.py, io/csrc/gif.cpp): the committed fixtures
+              (tests/data/gif) against PIL's digests (indices, mode, size,
+              palette, transparency, convert("RGB"); the refused ones
+              must raise), decode_to_canvas over them against the JAX
+              package's canvases (default and cropped) and load_depth_file
+              of the depth ones against the JAX package's; the 60 frames as
+              interlaced P GIFs of a permuted grey palette (write_gif),
+              whose canvases must be the PNG glob's and whose register CLI
+              run (K1 as many as the TIFF glob's, K2 none; counts zeroed
+              just before and read just after) must give the PNG glob's
+              poses; read_gif's ms and MP/s on a frame of JPEG_PHOTO_HW and
+              decode_to_canvas of FORMAT_PHOTO_FRAMES such frames in the
+              same fresh process as the TIFF and WebP runs
   6 mapping   the train CLI end to end on the 60 frames and their shipped
               poses at full width (batch 5,120, 614,400 buffer rows): the
               pipeline's mapping recipe, then the same schedule with the
@@ -161,8 +179,8 @@ Phases:
  17 report    one JSON line describing every kernel, then the card's
               nvidia-smi line, then the final status line
 
-Phase `device` always runs (it turns TF32 off for the comparisons), and
-phase `render` brings phase `bare`, whose output it reads. With a
+Phase `device` always runs (it turns TF32 off for the comparisons), in each
+child too, and phase `render` brings phase `bare`, whose output it reads. With a
 subset the report carries null for what the skipped phases measure, and the
 status line is printed all the same.
 """
@@ -179,10 +197,12 @@ import json
 import logging
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -194,6 +214,19 @@ FOCAL = 520.0
 
 PHASES = ("device", "build", "kernels", "registrar", "slice", "formats", "mapping", "loopclose", "profile",
           "pipeline", "seeddepth", "bare", "render", "jpeg", "spill", "mesh", "pretrain", "report")
+# The phases after `formats` but `profile` run as these groups, each group in
+# a child process of this script (--phases GROUP --handoff FILE), all the
+# groups at once on the one card. Each phase is bound by its host (the card
+# is busy an eighth of a mapping step: phase profile), so the groups share
+# the card and the host's cores and the run takes about its longest group
+# instead of the sum. A group keeps together the phases that read another's
+# output: mapping's fixed-pose map (loopclose, mesh) and bare's folder and
+# JPEG glob (render, jpeg). The phases before them and `profile` after them
+# run alone, so the kernels' times, the decoders' times and the mapping
+# step's host and device times share the card and the host with no other
+# process; the groups' own seconds and rates are taken beside one another.
+PARALLEL_GROUPS = (("mapping", "loopclose", "mesh"), ("pipeline", "seeddepth", "spill"),
+                   ("bare", "render", "jpeg"), ("pretrain",))
 
 # H100 SXM published peaks (dense bf16 tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -460,6 +493,7 @@ JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
 FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats"
 WEBP_FIXTURES = ROOT / "tests" / "data" / "webp"
 WEBP_PHOTO = "photo_lossy_q80.webp"  # the committed lossy photo read_webp is timed on
+GIF_FIXTURES = ROOT / "tests" / "data" / "gif"
 JPEG_ROUNDTRIP = ((75, "4:2:0"), (90, "4:2:0"), (95, "4:4:4"), (75, "4:2:0"))
 JPEG_PHOTO_HW = (3286, 4946)
 JPEG_PHOTO_FRAMES = 8
@@ -479,11 +513,14 @@ FORMAT_TRAIN = MAPPING_SCHEDULE + ["--iterations", "200", "--learning_rate_warmu
                                    "--learning_rate_cooldown_iterations", "50"]
 FORMAT_PHOTO_FRAMES = 8
 FORMAT_PHOTO_KINDS = ("raw", "deflate_pred2")
+GIF_PALETTE_SEED = 7  # the permutation of the grey palette the GIF frames are written with
 # the Nerfstudio runner's downscale in phase render: one source of each kind
 # of image PIL opens, wider than the runner's 640-pixel bound, name: (kind,
 # (h, w)); the kind is PIL's mode, or ";16" for 16-bit colour. The port
 # writes them (runner_source, write_runner_sources), but for the palette and
-# 1-bit ones: those are PIL's own files, committed.
+# 1-bit ones and the GIFs: those are PIL's own files, committed (the GIF of
+# mode L a grey ramp of every level, which PIL's GIF save keeps as L, and a
+# P GIF with a transparency index, as `transparency` below gives it).
 # PIL's results (the JAX runner's resize and save) are in
 # tests/data/runner/pil_digests.json, made by scripts/make_runner_fixtures.py
 RUNNER_FIXTURES = ROOT / "tests" / "data" / "runner"
@@ -501,7 +538,11 @@ RUNNER_SOURCES = {
     "gray.jpg": ("L", (35, 800)),
     "rgb.jpg": ("RGB", (43, 1111)),
     "cmyk.jpg": ("CMYK", (30, 960)),
+    "palette.gif": ("P", (26, 900)),
+    "gray.gif": ("L", (20, 660)),
+    "palette_transparency.gif": ("P", (22, 960)),
 }
+RUNNER_GIF_TRANSPARENCY = {"palette_transparency.gif": 5}  # the GIF sources' transparency index
 RUNNER_PALETTE = [(i * 37 % 256, i * 91 % 256, 255 - i * 16) for i in range(16)]  # palette.png's colours
 FRAMES = "frame_*.png"
 N_FRAMES = 60
@@ -954,7 +995,7 @@ def runner_source(np, name: str):
 
 def write_runner_sources(np, out: Path) -> list[str]:
     """Write the runner sources into `out` with the port's writers, the
-    palette and 1-bit ones copied from RUNNER_FIXTURES; their paths."""
+    palette, 1-bit and GIF ones copied from RUNNER_FIXTURES; their paths."""
     from acezero_tpu_torch.io.jpeg import write_jpeg
     from acezero_tpu_torch.io.png import write_png
 
@@ -962,7 +1003,7 @@ def write_runner_sources(np, out: Path) -> list[str]:
     paths = []
     for name, (kind, _) in RUNNER_SOURCES.items():
         dst = out / name
-        if kind in ("P", "1"):
+        if kind in ("P", "1") or name.endswith(".gif"):
             shutil.copyfile(RUNNER_FIXTURES / name, dst)
         elif name.endswith(".jpg"):
             write_jpeg(dst, runner_source(np, name))
@@ -992,9 +1033,11 @@ def runner_kinds_check(np, runner, work: Path) -> dict:
     against PIL's results (RUNNER_FIXTURES/pil_digests.json): for each
     source, whether its pixels, the frame's new size, focal and principal
     point, and the output's bytes (a JPEG) or mode, pixels and RGB pixels
-    (a PNG) equal PIL's, and all of them together (`equal_to_pil`)."""
+    (a PNG; and a GIF's palette and transparency index) equal PIL's, and all
+    of them together (`equal_to_pil`)."""
     from acezero_tpu_torch.data.images import pil_array, read_image, read_rgb
     from acezero_tpu_torch.io.formats import pil_mode
+    from acezero_tpu_torch.io.gif import read_gif
 
     want = json.loads((RUNNER_FIXTURES / "pil_digests.json").read_text())
     frames = runner_downscale(runner, write_runner_sources(np, work / "sources"), work / "out")
@@ -1010,6 +1053,10 @@ def runner_kinds_check(np, runner, work: Path) -> dict:
             check["mode"] = pil_mode(path)
             check["pixels_equal"] = (check["mode"] == w["mode"] and array_digest(pil_array(read_image(path))) == w["sha256"]
                                      and array_digest(read_rgb(path)) == w["rgb_sha256"])
+            if name.endswith(".gif"):
+                r = read_gif(path)
+                check["palette_equal"] = (r.transparency == w["transparency"]
+                                          and palette_digest(np, r.palette) == w["palette"])
         check["equal_to_pil"] = all(v for k, v in check.items() if k.endswith("_equal"))
         kinds[name] = check
     return kinds
@@ -1053,6 +1100,27 @@ def tinted(np, img):
     channels."""
     base = img.astype(np.int16) if img.ndim == 3 else img.astype(np.int16)[..., None]
     return np.clip(base + np.asarray(JPEG_TINT, np.int16), 0, 255).astype(np.uint8)
+
+
+def palette_digest(np, palette) -> list | None:
+    """[colours, sha256 of the RGB bytes] of a palette (PIL's `getpalette()`
+    list, or an (n, 3) array), None for none."""
+    if palette is None:
+        return None
+    flat = np.asarray(palette, np.uint8).reshape(-1)
+    return [len(flat) // 3, array_digest(flat)]
+
+
+def gif_grey_frame(np, gray, tint: bool = False):
+    """(indices, palette) of a gray (h, w) uint8 frame as a mode-P image of
+    a permuted palette: entry perm[g] is the grey g, or with `tint` the
+    grey g tinted by JPEG_TINT, so that the palette gives the frame's (or
+    the tinted frame's) colours exactly."""
+    perm = np.random.default_rng(GIF_PALETTE_SEED).permutation(256).astype(np.uint8)
+    levels = np.arange(256, dtype=np.uint8)
+    palette = np.empty((256, 3), np.uint8)
+    palette[perm] = tinted(np, levels[None, :])[0] if tint else np.repeat(levels[:, None], 3, axis=1)
+    return perm[gray], palette
 
 
 def array_digest(arr) -> str:
@@ -1150,13 +1218,21 @@ def photo_decode_child(root: Path, pattern: str, workers: int) -> dict:
     return photo_decode_runs(root, [(pattern, workers)])[0]
 
 
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    ap.add_argument("--handoff", default=None,
+                    help="run the phases in this process, write their launch counts to this JSON "
+                         "file and print no report or status line (the children of PARALLEL_GROUPS)")
+    return ap
+
+
 def parse_phases(argv) -> list[str]:
     """The phases to run, in PHASES order, `device` always among them and
     `bare` whenever `render` is (it reads bare's output). An unknown name
     is an error (argparse exits with status 2)."""
-    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    ap = parser()
     args = ap.parse_args(argv)
     names = {p.strip() for p in args.phases.split(",") if p.strip()}
     unknown = sorted(names - set(PHASES))
@@ -1167,8 +1243,77 @@ def parse_phases(argv) -> list[str]:
     return [p for p in PHASES if p in names or p == "device"]
 
 
+def parallel_groups(phases: list[str]) -> list[list[str]]:
+    """The groups of PARALLEL_GROUPS that hold a phase of `phases`, each cut
+    to those phases; none where fewer than two do (the phases then run in
+    this process)."""
+    groups = [[p for p in g if p in phases] for g in PARALLEL_GROUPS]
+    groups = [g for g in groups if g]
+    return groups if len(groups) > 1 else []
+
+
+def _die_with_parent() -> None:
+    """In a child, before exec: the kernel sends it SIGKILL when the parent
+    ends, however the parent ends."""
+    import ctypes
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+
+
+def run_groups(groups: list[list[str]], work: str) -> dict:
+    """Run each group of phases in a child process of this script, all at
+    once, relaying their lines as they come (their standard error is this
+    process's), and return the launch counts they hand back by name. When
+    a child fails the others are stopped and this raises."""
+    procs = []
+    for i, group in enumerate(groups):
+        out = Path(work) / f"handoff_{i}.json"
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--phases", ",".join(group), "--handoff", str(out)]
+        procs.append((group, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                                   preexec_fn=_die_with_parent)))
+    lock = threading.Lock()
+
+    def relay(stream):
+        for line in stream:
+            with lock:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+    relays = [threading.Thread(target=relay, args=(p.stdout,), daemon=True) for _, _, p in procs]
+    for t in relays:
+        t.start()
+    try:
+        codes = [p.poll() for _, _, p in procs]
+        while None in codes and not any(codes):
+            time.sleep(0.2)
+            codes = [p.poll() for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for _, _, p in procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for t in relays:
+            t.join(timeout=20)
+    failed = [(g, p.returncode) for g, _, p in procs if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"phase group(s) failed (group, exit code): {failed}")
+    handed = {}
+    for group, out, _ in procs:
+        for name, value in json.loads(out.read_text()).items():
+            if value is not None:
+                handed[name] = value
+    return handed
+
+
 def main(argv=None) -> int:
-    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    phases = parse_phases(argv)
+    handoff = parser().parse_args(argv).handoff
     import torch
 
     if not torch.cuda.is_available():
@@ -1202,6 +1347,7 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.io import jpeg as tjpeg
     from acezero_tpu_torch.io import tiff as ttiff
     from acezero_tpu_torch.io import webp as twebp
+    from acezero_tpu_torch.io import gif as tgif
     from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
     from acezero_tpu_torch.io.pose_files import write_pose_file
     from acezero_tpu_torch.data.augment import normalize_images
@@ -1234,9 +1380,9 @@ def main(argv=None) -> int:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
             # the host libraries (c++: the JPEG codec, the canvas pass, the
-            # TIFF and BMP codecs and the WebP codec) build while nvcc
-            # builds the kernels
-            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE)
+            # TIFF and BMP codecs, the WebP codec and the GIF codec) build
+            # while nvcc builds the kernels
+            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE, tgif.SOURCE)
             with concurrent.futures.ThreadPoolExecutor(max_workers=len(host_sources)) as ex:
                 hosts = [ex.submit(build.build_host, src) for src in host_sources]
                 build.build([fh.KERNEL, fh.KERNEL_BWD])
@@ -1259,6 +1405,12 @@ def main(argv=None) -> int:
     slice_poses = None  # phase slice's register_cli poses of the PNG glob, file names dropped
     lc_shapes = None  # [B, L] of each K1 launch of phase loopclose
     map_head = None  # (HeadConfig, params) of phase mapping's fixed-pose run
+    pipe_launches = None  # launch counts of phase pipeline
+    bare_launches = None  # launch counts of phase bare
+    render_launches = None  # launch counts of phase render's main-path calls
+    spill_launches = None  # launch counts of phase spill
+    mesh_launches = None  # launch counts of phase mesh, in all and by mesh and run
+    pretrain_launches = None  # launch counts of phase pretrain, by run
     if "kernels" in phases:
         with phase("kernels", {}) as rec:
             results = []
@@ -1651,29 +1803,115 @@ def main(argv=None) -> int:
                     f"register_cli on the WebP glob: launches {format_launches['register_webp']}")
             webp_seconds = time.perf_counter() - t0
 
+            # GIF: (a) the committed fixtures against PIL's digests (the
+            # refused ones must raise); (b) their canvases and depth maps
+            # against the JAX package's; (c) the BMP and PPM kinds read since
+            # are among the fixtures of FORMAT_FIXTURES above; (d) the 60
+            # frames as interlaced P GIFs of a permuted grey palette: the PNG
+            # glob's canvases; (e) the register CLI (K1) the PNG glob's poses
+            t0 = time.perf_counter()
+            gdigests = json.loads((GIF_FIXTURES / "pil_digests.json").read_text())
+            gchecks = {}
+            for name, want in sorted(gdigests["files"].items()):
+                path = GIF_FIXTURES / name
+                if want.get("raises"):
+                    try:
+                        tgif.read_gif(path)
+                        gchecks[name] = False
+                    except ValueError as e:
+                        gchecks[name] = str(path) in str(e)
+                    continue
+                r = tgif.read_gif(path)
+                width, height, mode, transparency = tgif.gif_header(path)
+                gchecks[name] = (r.mode == mode == want["mode"] and [width, height] == want["size"]
+                                 and list(r.pixels.shape) == want["shape"] and array_digest(r.pixels) == want["sha256"]
+                                 and palette_digest(np, r.palette) == want["palette"]
+                                 and r.transparency == transparency == want["transparency"]
+                                 and array_digest(read_rgb(path)) == want["rgb_sha256"])
+            gbad = sorted(n for n, ok in gchecks.items() if not ok)
+            rec["gif_library"] = build.host_target(tgif.SOURCE).name
+            rec["gif_build_seconds"] = build.build_info[tgif.SOURCE.stem]["seconds"]
+            rec["gif_fixtures_equal_to_pil"] = f"{len(gchecks) - len(gbad)}/{len(gchecks)}"
+            require(gchecks and not gbad, f"GIF fixtures not decoded as PIL decodes them: {gbad}")
+            gpaths = sorted(str(GIF_FIXTURES / n) for n, want in gdigests["files"].items() if not want.get("raises"))
+            gcanvas = []
+            for entry in gdigests["canvas"]:
+                hw = None if entry["canvas_hw"] is None else tuple(entry["canvas_hw"])
+                out = decode_to_canvas(gpaths, short_size=entry["short_size"], canvas_hw=hw, num_workers=4)
+                gcanvas.append({"short_size": entry["short_size"], "canvas_hw": entry["canvas_hw"],
+                                "equal_to_jax": canvas_digest(out) == entry["sha256"]})
+            gdepth = {n: array_digest(load_depth_file(GIF_FIXTURES / n)) == want for n, want in gdigests["depth"].items()}
+            rec["gif_canvas"] = gcanvas
+            rec["gif_depth_equal_to_jax"] = f"{sum(gdepth.values())}/{len(gdepth)}"
+            require(len(gcanvas) == 2 and all(c["equal_to_jax"] for c in gcanvas) and gdepth and all(gdepth.values()),
+                    f"the GIF fixtures' canvases or depth maps are not the JAX package's: {gcanvas}, {gdepth}")
+            (tmp / "gif").mkdir()
+            for f in frames:
+                gray = read_png(f)
+                require(gray.ndim == 2, f"{f} is not a gray frame")
+                idx, pal = gif_grey_frame(np, gray)
+                tgif.write_gif(tmp / "gif" / f"{Path(f).stem}.gif", idx, "P", pal)
+            gif_glob = str(tmp / "gif" / "frame_*.gif")
+            gif_modes = {tformats.pil_mode(p_) for p_ in glob.glob(gif_glob)}
+            rec["gif_canvases_equal_to_png"] = gif_modes == {"P"} and canvas_digest(
+                decode_to_canvas(sorted(glob.glob(gif_glob)), short_size=480)) == want_canvas
+            require(rec["gif_canvases_equal_to_png"], f"the GIF glob's canvases differ from the PNG glob's ({gif_modes})")
+            net = tmp / "head_gif.pt"
+            shutil.copy(HEAD, net)
+            argv = [gif_glob, str(net), "--encoder_path", str(ENCODER), "--use_external_focal_length", str(FOCAL),
+                    "--session", "gif", "--device", DEVICE]
+            fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+            t1 = time.perf_counter()
+            require(register_cli.main(argv) == 0, "register_cli failed on the GIF glob")
+            torch.cuda.synchronize()
+            format_launches["register_gif"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                               "seconds": time.perf_counter() - t1}
+            gif_poses = [ln.split()[1:] for ln in (tmp / "poses_gif.txt").read_text().splitlines()]
+            rec["gif_register_poses_equal"] = gif_poses == poses["png"] and len(gif_poses) == N_FRAMES
+            require(rec["gif_register_poses_equal"], "register_cli gives other poses on the GIF glob")
+            g = format_launches["register_gif"]
+            require(g["fwd"] == format_launches["register_tiff"]["fwd"] > 0 and g["bwd"] == 0,
+                    f"register_cli on the GIF glob: launches {g} (the TIFF glob's {format_launches['register_tiff']})")
+            gif_seconds = time.perf_counter() - t0
+
             # (c) photo-size frames: the chesslike frames enlarged to
-            # JPEG_PHOTO_HW, tinted, as each of FORMAT_PHOTO_KINDS
+            # JPEG_PHOTO_HW and tinted, as each of FORMAT_PHOTO_KINDS, as
+            # lossless WebP, and as P GIFs whose palette gives the same
+            # colours (the tint of each grey level)
             photo = tmp / "photo"
             srcs = frames[:: N_FRAMES // FORMAT_PHOTO_FRAMES][:FORMAT_PHOTO_FRAMES]
 
             def make_photo(i_f):
                 i, f = i_f
-                big = pil_resize_bilinear(tinted(np, read_png(f)), *JPEG_PHOTO_HW)
+                gray = pil_resize_bilinear(read_png(f), *JPEG_PHOTO_HW)
+                big = tinted(np, gray)
                 for k in FORMAT_PHOTO_KINDS:
                     write_format_frame(np, photo / k / f"photo_{i:02d}.tif", big, k)
                 t0 = time.perf_counter()
                 twebp.write_webp(photo / "webp" / f"photo_{i:02d}.webp", big)
+                return gray, time.perf_counter() - t0
+
+            def make_gif(i_gray):
+                i, gray = i_gray
+                t0 = time.perf_counter()
+                idx, pal = gif_grey_frame(np, gray, tint=True)
+                tgif.write_gif(photo / "gif" / f"photo_{i:02d}.gif", idx, "P", pal)
                 return time.perf_counter() - t0
 
-            for k in FORMAT_PHOTO_KINDS + ("webp",):
+            for k in FORMAT_PHOTO_KINDS + ("webp", "gif"):
                 (photo / k).mkdir(parents=True)
             t0 = time.perf_counter()
             with concurrent.futures.ThreadPoolExecutor(max_workers=FORMAT_PHOTO_FRAMES) as ex:
-                webp_write_s = list(ex.map(make_photo, enumerate(srcs)))
+                made = list(ex.map(make_photo, enumerate(srcs)))
+                t1 = time.perf_counter()
+                gif_write_s = list(ex.map(make_gif, enumerate(g_ for g_, _ in made)))
             mp = JPEG_PHOTO_HW[0] * JPEG_PHOTO_HW[1] / 1e6
             rec["photo"] = {"frames": len(srcs), "hw": list(JPEG_PHOTO_HW), "megapixels": mp,
-                            "make_seconds": time.perf_counter() - t0,
-                            "write_webp_ms": statistics.median(webp_write_s) * 1e3}
+                            "make_seconds": t1 - t0, "make_gif_seconds": time.perf_counter() - t1,
+                            "write_webp_ms": statistics.median(w_ for _, w_ in made) * 1e3,
+                            "write_gif_ms": statistics.median(gif_write_s) * 1e3}
+            del made
+            gif_seconds += rec["photo"]["make_gif_seconds"]
             for k in FORMAT_PHOTO_KINDS:
                 files = sorted(str(p_) for p_ in (photo / k).glob("*.tif"))
                 read_s = []
@@ -1699,11 +1937,24 @@ def main(argv=None) -> int:
                                     "read_webp_ms": statistics.median(read_s) * 1e3,
                                     "read_webp_mp_per_s": mp / statistics.median(read_s)}
             webp_seconds += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            files = sorted(str(p_) for p_ in (photo / "gif").glob("*.gif"))
+            read_s = []
+            for f in files[:3]:
+                t1 = time.perf_counter()
+                r = tgif.read_gif(f)
+                read_s.append(time.perf_counter() - t1)
+            require(r.mode == "P" and r.pixels.shape == JPEG_PHOTO_HW, f"a GIF photo frame decodes to {r.mode} {r.pixels.shape}")
+            del r
+            rec["photo"]["gif"] = {"mean_bytes": statistics.mean(Path(f).stat().st_size for f in files),
+                                   "read_gif_ms": statistics.median(read_s) * 1e3,
+                                   "read_gif_mp_per_s": mp / statistics.median(read_s)}
+            gif_seconds += time.perf_counter() - t0
             # decode_to_canvas of each kind with each worker count, in turn
             # in one fresh process (its import is paid once)
-            pairs = [(k, w) for k in FORMAT_PHOTO_KINDS + ("webp",) for w in JPEG_WORKERS]
-            runs = photo_decode_runs(ROOT, [(str(photo / k / ("*.webp" if k == "webp" else "*.tif")), w)
-                                            for k, w in pairs])
+            suffix = {"webp": "*.webp", "gif": "*.gif"}
+            pairs = [(k, w) for k in FORMAT_PHOTO_KINDS + ("webp", "gif") for w in JPEG_WORKERS]
+            runs = photo_decode_runs(ROOT, [(str(photo / k / suffix.get(k, "*.tif")), w) for k, w in pairs])
             for (k, w), r in zip(pairs, runs):
                 r.update(ms_per_image=r["seconds"] / r["frames"] * 1e3, mp_per_s=r["frames"] * mp / r["seconds"])
                 rec["photo"][k].setdefault("decode_to_canvas", {})[str(w)] = r
@@ -1712,7 +1963,20 @@ def main(argv=None) -> int:
                     "the photo frames' canvases differ between kinds or worker counts")
             shutil.rmtree(photo)
             webp_seconds += sum(r["seconds"] for (k, _), r in zip(pairs, runs) if k == "webp")
+            gif_seconds += sum(r["seconds"] for (k, _), r in zip(pairs, runs) if k == "gif")
             rec["webp_seconds"] = webp_seconds
+            rec["gif_seconds"] = gif_seconds
+
+    groups = parallel_groups(phases) if handoff is None else []
+    if groups:
+        with phase("parallel", {"groups": groups}):
+            handed = run_groups(groups, work)
+        map_launches, lc_launches, lc_shapes = (handed.get(k) for k in ("map_launches", "lc_launches", "lc_shapes"))
+        pipe_launches, bare_launches, render_launches = (handed.get(k) for k in ("pipe_launches", "bare_launches",
+                                                                                 "render_launches"))
+        spill_launches, mesh_launches, pretrain_launches = (handed.get(k) for k in ("spill_launches", "mesh_launches",
+                                                                                    "pretrain_launches"))
+        phases = [p for p in phases if not any(p in g for g in groups)]
 
     if "mapping" in phases:
         with phase("mapping", {}) as rec:
@@ -1955,7 +2219,6 @@ def main(argv=None) -> int:
                              "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / n for e in top}}
                 del trainer, buffer, state
 
-    pipe_launches = None  # launch counts of phase pipeline
     pipe_scene_load = None  # phase pipeline's scene_load seconds (a cold decode cache)
     if "pipeline" in phases:
         with phase("pipeline", {}) as rec:
@@ -2072,7 +2335,6 @@ def main(argv=None) -> int:
                                                                 f"{SEEDDEPTH_TOL} of the JAX package's {ref:.4f}")
             require(dlog <= SEEDDEPTH_CPU_TOL, f"card and CPU log-depth differ by {dlog} > {SEEDDEPTH_CPU_TOL}")
 
-    bare_launches = None  # launch counts of phase bare
     bare_out = bare_glob = None  # phase bare's output folder and JPEG glob, read by phases render and jpeg
     rec_bare_scene_load = None  # phase bare's cold scene_load seconds on its JPEGs
     if "bare" in phases:
@@ -2213,7 +2475,6 @@ def main(argv=None) -> int:
             bare_out = out_dir
             rec_bare_scene_load = totals.get("scene_load", (None,))[0]
 
-    render_launches = None  # launch counts of phase render's main-path calls
     if "render" in phases:
         with phase("render", {}) as rec:
             rec.update(kind=kind, nvidia_smi=smi, pixel_share=RENDER_PIXEL_SHARE)
@@ -2520,7 +2781,6 @@ def main(argv=None) -> int:
                             "bare_cold_scene_load_seconds": rec_bare_scene_load}
             require(rec["cache"]["hit"] and len(warm.canvases) == N_FRAMES, f"the decode cache missed: {rec['cache']}")
 
-    spill_launches = None  # launch counts of phase spill
     if "spill" in phases:
         with phase("spill", {}) as rec:
             rec.update(kind=kind, nvidia_smi=smi, steps_held=SPILL_STEPS[0], steps_timed=SPILL_STEPS[1])
@@ -2574,7 +2834,6 @@ def main(argv=None) -> int:
             require(all(rec[n]["fused_head_bwd_launches"] == total and rec[n]["fused_head_fwd_launches"] >= total
                         for n in ("device", "host_spill")), f"a run missed its kernels: {spill_launches}")
 
-    mesh_launches = None  # launch counts of phase mesh, in all and by mesh and run
     if "mesh" in phases:
         with phase("mesh", {}) as rec:
             from collections import Counter
@@ -2855,7 +3114,6 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             require(not failures, "; ".join(failures))
 
-    pretrain_launches = None  # launch counts of phase pretrain, by run
     if "pretrain" in phases:
         with phase("pretrain", {}) as rec:
             from acezero_tpu_torch.cli import pretrain_cli, pretrain_depth_cli
@@ -3080,6 +3338,12 @@ def main(argv=None) -> int:
                                  for name, e in k2.items() if name != "mapping"},
             }])
 
+    if handoff is not None:
+        Path(handoff).write_text(json.dumps({
+            "map_launches": map_launches, "lc_launches": lc_launches, "lc_shapes": lc_shapes,
+            "pipe_launches": pipe_launches, "bare_launches": bare_launches, "render_launches": render_launches,
+            "spill_launches": spill_launches, "mesh_launches": mesh_launches, "pretrain_launches": pretrain_launches}))
+        return 0
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

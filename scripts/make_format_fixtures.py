@@ -17,9 +17,11 @@ PIL writes the kinds Pillow's `save` writes (uncompressed, LZW, Deflate,
 PackBits and JPEG TIFFs, BMP, binary PNM, PFM). Numpy writers make the
 others: `tiff_bytes` of scripts/tiff_encode.py (any byte order, strips or
 tiles, planar 1 or 2, PackBits, LZW or Deflate, predictors 2 and 3, fill
-order 2, palettes, orientation), and below `bmp_bytes` (OS/2 v1, V4/V5, top-down, bitfields, RLE8 and
-RLE4) and `pnm_bytes` (the plain formats, any maxval, PFM of either
-byte order). Their bytes are nobody's in particular; PIL decodes them. The
+order 2, palettes, orientation), and below `bmp_bytes` (OS/2 v1, V4/V5,
+top-down, bitfields, RLE8 and RLE4, delta escapes, gray palettes of any
+size) and `pnm_bytes` (the plain formats, any maxval, PFM of either byte
+order, Pillow's own kinds). Their bytes are nobody's in particular; PIL
+decodes them. The
 tests import this module to make more such files.
 
 tests/test_torch_formats.py checks the digests against PIL and the JAX
@@ -99,15 +101,30 @@ def rle_encode(rows: np.ndarray, rle4: bool) -> bytes:
     return bytes(out + b"\x00\x01")
 
 
+def rle_with_deltas(rows: np.ndarray, rle4: bool, every: int = 3) -> bytes:
+    """RLE8 / RLE4 of (h, w) indices, rows bottom-up as `rle_encode` writes
+    them, but every `every`-th row ends in a delta escape in place of its
+    end of line: 00 02, two bytes Pillow skips, and (right, up) = (3, k % 2)
+    that it reads after them."""
+    out = bytearray()
+    for k, row in enumerate(rows[::-1]):
+        seg = rle_encode(row[None, :], rle4)[:-2]  # the row and its end of line
+        if k % every == every - 1:
+            seg = seg[:-2] + bytes([0, 2, 0, 0, 3, k % 2])
+        out += seg
+    return bytes(out + b"\x00\x01")
+
+
 def bmp_bytes(pixels: np.ndarray, *, bits: int, header: int = 40, palette=None, compression: int = 0,
-              masks=None, top_down: bool = False) -> bytes:
+              masks=None, top_down: bool = False, rle: bytes | None = None) -> bytes:
     """A BMP of `pixels`: (h, w) indices for 1, 4 and 8 bits (`palette` (n,
     3) RGB), (h, w) uint16 words for 16, (h, w, 3) BGR or (h, w, 4) bytes
     for 24 and 32 as they are stored. `header` 12 (OS/2 v1), 40, 108 (V4)
-    or 124 (V5); `masks` the bitfields of compression 3."""
+    or 124 (V5); `masks` the bitfields of compression 3; `rle` the RLE data
+    of compression 1 or 2 as it is (else `rle_encode`'s)."""
     h, w = pixels.shape[:2]
     if compression in (1, 2):
-        data = rle_encode(pixels, compression == 2)
+        data = rle if rle is not None else rle_encode(pixels, compression == 2)
     else:
         stride = ((w * bits + 31) >> 3) & ~3
         if bits < 8:
@@ -298,6 +315,18 @@ def _fixtures() -> dict:
         "rle4.bmp": lambda: bmp_bytes(_runs(idx16), bits=4, compression=2, palette=PALETTE),
         "rle8_gray.bmp": lambda: bmp_bytes(_runs(gray // 64 * 64), bits=8, compression=1,
                                            palette=[(i, i, i) for i in range(256)]),
+        "rle8_delta.bmp": lambda: bmp_bytes(idx16, bits=8, compression=1, palette=PALETTE,
+                                            rle=rle_with_deltas(_runs(idx16), False)),
+        "rle4_delta.bmp": lambda: bmp_bytes(idx16, bits=4, compression=2, palette=PALETTE,
+                                            rle=rle_with_deltas(_runs(idx16), True, every=4)),
+        # gray palettes PIL reads at the new mode's rawmode whatever the bit
+        # depth: 16 levels of 4 bits as L (a byte a pixel, rows mapped from the
+        # file 20 bytes apart), 2 levels of 8 bits as 1 (a bit a pixel), 4
+        # levels of 1 bit as L
+        "gray4_palette.bmp": lambda: bmp_bytes(gray >> 4, bits=4, palette=[(i, i, i) for i in range(16)]),
+        "gray8_two_levels.bmp": lambda: bmp_bytes(bilevel.astype(np.uint8), bits=8, palette=[(0, 0, 0), (255,) * 3]),
+        "gray1_four_levels.bmp": lambda: bmp_bytes(bilevel.astype(np.uint8), bits=1,
+                                                   palette=[(i, i, i) for i in range(4)]),
         # Netpbm and PFM
         "bilevel_plain.pbm": lambda: pnm_bytes("P1", bilevel),
         "bilevel.pbm": lambda: _pil_save(bilevel, "PPM", "1"),
@@ -312,6 +341,11 @@ def _fixtures() -> dict:
         "rgb_maxval1023.ppm": lambda: pnm_bytes("P6", rgb.astype(np.uint16) * 4, 1023),
         "float_le.pfm": lambda: _pil_save(f32, "PPM"),
         "float_be.pfm": lambda: pnm_bytes("Pf", f32, scale=2.0),
+        # Pillow's own PPM kinds
+        "cmyk.ppm": lambda: pnm_bytes("P0CMYK", cmyk),
+        "pillow_p.ppm": lambda: pnm_bytes("PyP", idx16),
+        "pillow_rgba.ppm": lambda: pnm_bytes("PyRGBA", rgba),
+        "pillow_cmyk_maxval1000.ppm": lambda: pnm_bytes("PyCMYK", (cmyk.astype(np.uint16) * 4), 1000),
     }
 
 

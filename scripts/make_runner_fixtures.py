@@ -4,14 +4,16 @@ PIL's where there is no PIL (the card's machine):
 
 - tests/data/runner/palette.png and bilevel.png: the runner sources of
   modes P and 1 (chip_smoke.RUNNER_SOURCES) as PIL's own files, saved by
-  PIL from chip_smoke.runner_source's pixels;
+  PIL from chip_smoke.runner_source's pixels; and the GIF sources (P, L,
+  P with chip_smoke.RUNNER_GIF_TRANSPARENCY's index), saved by PIL;
 - tests/data/runner/pil_digests.json: for each runner source, the sha256
   of chip_smoke.runner_source's pixels, and what the JAX runner's
   downscale (PIL's `resize(BILINEAR)` and `save`) makes of the source that
   chip_smoke.write_runner_sources writes: the frame's new size, focal and
   principal point, and the output's bytes (a JPEG) or its mode, its pixels
   as PIL opens it and its `convert("RGB")` (a PNG; a mode-P output's
-  indices, a mode-1 output's bits).
+  indices, a mode-1 output's bits; for a GIF also the palette, as
+  chip_smoke.palette_digest, and the transparency index).
 
     python3 scripts/make_runner_fixtures.py
 
@@ -39,14 +41,16 @@ OUT = chip_smoke.RUNNER_FIXTURES
 
 
 def write_fixtures() -> None:
-    """The P and 1 sources, saved by PIL."""
+    """The P, 1 and GIF sources, saved by PIL."""
     OUT.mkdir(parents=True, exist_ok=True)
     for name, (kind, _) in chip_smoke.RUNNER_SOURCES.items():
         if kind == "P":
             img = Image.fromarray(chip_smoke.runner_source(np, name), "P")
             img.putpalette([c for rgb in chip_smoke.RUNNER_PALETTE for c in rgb])
+            if name in chip_smoke.RUNNER_GIF_TRANSPARENCY:
+                img.info["transparency"] = chip_smoke.RUNNER_GIF_TRANSPARENCY[name]
             img.save(OUT / name)
-        elif kind == "1":
+        elif kind == "1" or name.endswith(".gif"):
             Image.fromarray(chip_smoke.runner_source(np, name)).save(OUT / name)
 
 
@@ -67,6 +71,9 @@ def digests(work: Path) -> dict:
                 arr = np.asarray(img)
                 entry.update(mode=img.mode, shape=list(arr.shape), sha256=chip_smoke.array_digest(arr),
                              rgb_sha256=chip_smoke.array_digest(np.asarray(img.convert("RGB"))))
+                if name.endswith(".gif"):
+                    entry.update(palette=chip_smoke.palette_digest(np, img.getpalette()),
+                                 transparency=img.info.get("transparency"))
         out[name] = entry
     return out
 
@@ -76,8 +83,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         table = digests(Path(tmp))
     (OUT / "pil_digests.json").write_text(json.dumps(table, indent=1, sort_keys=True) + "\n")
-    print(f"wrote {len(table)} digests and {sum(k in ('P', '1') for k, _ in chip_smoke.RUNNER_SOURCES.values())} "
-          f"fixtures to {OUT}")
+    committed = sum(k in ("P", "1") or n.endswith(".gif") for n, (k, _) in chip_smoke.RUNNER_SOURCES.items())
+    print(f"wrote {len(table)} digests and {committed} fixtures to {OUT}")
 
 
 if __name__ == "__main__":

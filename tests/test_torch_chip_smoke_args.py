@@ -350,3 +350,74 @@ def test_array_digest_takes_pils_bilevel_bytes():
     pil_like = np.frombuffer(bytes([255, 0, 255]), np.bool_).reshape(1, 3)
     assert chip_smoke.array_digest(pil_like) == chip_smoke.array_digest(b) == chip_smoke.array_digest(
         np.array([[1, 0, 1]], np.uint8))
+
+
+def test_parallel_groups_cover_the_middle_phases_once_and_keep_readers_with_writers():
+    """Every phase between formats and report but profile is in exactly one
+    group; the phases that read another's output share its group (mapping's
+    map: loopclose, mesh; bare's folder: render, jpeg)."""
+    order = list(chip_smoke.PHASES)
+    middle = order[order.index("formats") + 1: order.index("report")]
+    grouped = [p for g in chip_smoke.PARALLEL_GROUPS for p in g]
+    assert sorted(grouped) == sorted(p for p in middle if p != "profile")
+    where = {p: i for i, g in enumerate(chip_smoke.PARALLEL_GROUPS) for p in g}
+    assert where["loopclose"] == where["mesh"] == where["mapping"]
+    assert where["render"] == where["jpeg"] == where["bare"]
+    for g in chip_smoke.PARALLEL_GROUPS:
+        assert list(g) == [p for p in order if p in g]  # the script's order within a group
+
+
+@pytest.mark.parametrize("arg,want", [
+    ("", [list(g) for g in chip_smoke.PARALLEL_GROUPS]),
+    ("mapping,mesh", []),  # one group: in this process
+    ("profile,report", []),
+    ("pipeline,pretrain,report", [["pipeline"], ["pretrain"]]),
+    ("render,spill", [["spill"], ["bare", "render"]]),
+])
+def test_parallel_groups_of_a_subset(arg, want):
+    phases = chip_smoke.parse_phases(["--phases", arg] if arg else [])
+    assert chip_smoke.parallel_groups(phases) == want
+
+
+def test_handoff_is_an_option_beside_phases():
+    args = chip_smoke.parser().parse_args(["--phases", "bare,render", "--handoff", "x.json"])
+    assert args.handoff == "x.json" and chip_smoke.parse_phases(["--phases", "bare,render", "--handoff", "x.json"]) == [
+        "device", "bare", "render"]
+    assert chip_smoke.parser().parse_args([]).handoff is None
+
+
+FAKE_CHILD = '''
+import json, sys, time
+args = sys.argv[1:]
+phases, out = args[args.index("--phases") + 1], args[args.index("--handoff") + 1]
+print(json.dumps({"phase": phases, "event": "end"}), flush=True)
+if phases == "bad":
+    sys.exit(3)
+if phases == "slow":
+    time.sleep(60)
+with open(out, "w") as f:
+    json.dump({"map_launches": {"fwd": 1} if phases == "a" else None,
+               "pipe_launches": {"fwd": 2} if phases == "b" else None}, f)
+'''
+
+
+def test_run_groups_relays_lines_and_merges_handoffs(tmp_path, monkeypatch, capfd):
+    fake = tmp_path / "child.py"
+    fake.write_text(FAKE_CHILD)
+    monkeypatch.setattr(chip_smoke, "__file__", str(fake))
+    handed = chip_smoke.run_groups([["a"], ["b"]], str(tmp_path))
+    assert handed == {"map_launches": {"fwd": 1}, "pipe_launches": {"fwd": 2}}
+    lines = capfd.readouterr().out.splitlines()
+    assert sorted(lines) == ['{"phase": "a", "event": "end"}', '{"phase": "b", "event": "end"}']
+
+
+def test_run_groups_stops_the_others_when_one_fails(tmp_path, monkeypatch):
+    import time
+
+    fake = tmp_path / "child.py"
+    fake.write_text(FAKE_CHILD)
+    monkeypatch.setattr(chip_smoke, "__file__", str(fake))
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match=r"\(\['bad'\], 3\)"):
+        chip_smoke.run_groups([["slow"], ["bad"]], str(tmp_path))
+    assert time.perf_counter() - t0 < 30  # the slow child was stopped, not waited for

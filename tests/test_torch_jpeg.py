@@ -42,6 +42,7 @@ package on the CPU.
 import hashlib
 import io
 import json
+import shutil
 import struct
 import sys
 import threading
@@ -149,7 +150,7 @@ def test_unsupported_or_broken_files_raise(case, match, tmp_path):
         p.write_bytes(rgb.read_bytes()[: len(rgb.read_bytes()) // 2])
     elif case == "not_an_image":
         p = tmp_path / "x.jpg"
-        p.write_bytes(b"GIF89a not an image at all")
+        p.write_bytes(b"not an image at all")  # (a GIF signature made it a GIF, read since)
     elif case == "arithmetic":
         p = tmp_path / "a.jpg"
         p.write_bytes(fixtures.encode(ycc, sampling=[(2, 2), (1, 1), (1, 1)], coding="arithmetic"))
@@ -682,12 +683,15 @@ PIL_OPENS = {"RGB;16": "RGB", "RGBA;16": "RGBA", "LA;16": "RGBA"}  # the mode PI
 
 def _pil_runner_sources(out):
     """The runner sources, written by PIL (16-bit colour, which PIL cannot
-    write, by _png with every row filter)."""
+    write, by _png with every row filter; the GIFs as RUNNER_FIXTURES has
+    them)."""
     out.mkdir()
     paths = []
     for name, (kind, _) in chip_smoke.RUNNER_SOURCES.items():
         px = chip_smoke.runner_source(np, name)
-        if kind.endswith(";16") and kind != "I;16":
+        if name.endswith(".gif"):
+            shutil.copyfile(chip_smoke.RUNNER_FIXTURES / name, out / name)
+        elif kind.endswith(";16") and kind != "I;16":
             _png(out / name, px, 16, {"RGB;16": 2, "LA;16": 4, "RGBA;16": 6}[kind])
         elif kind == "P":
             img = Image.fromarray(px, "P")
@@ -731,7 +735,10 @@ def test_runner_downscales_every_mode_as_pil(name, writer, runner_outputs):
         return
     with Image.open(got) as g, Image.open(want) as w:
         kind = chip_smoke.RUNNER_SOURCES[name][0]
-        assert w.mode == PIL_OPENS.get(kind, kind)  # PIL keeps the mode it opened the source in
+        if name.endswith(".gif"):  # PIL's GIF save of L keeps L only for a palette of the grey ramp
+            assert g.getpalette() == w.getpalette() and g.info.get("transparency") == w.info.get("transparency")
+        else:
+            assert w.mode == PIL_OPENS.get(kind, kind)  # PIL keeps the mode it opened the source in
         assert g.mode == w.mode
         assert np.array_equal(np.asarray(g), np.asarray(w))
         assert np.array_equal(np.asarray(g.convert("RGB")), np.asarray(w.convert("RGB")))

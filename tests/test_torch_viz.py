@@ -283,8 +283,10 @@ def test_image_size_png_and_jpeg(mode, size, tmp_path):
         for i, kw in enumerate(({}, {"progressive": True}, {"quality": 40, "exif": b"Exif\x00\x00" + bytes(900)})):
             img.save(tmp_path / f"a{i}.jpg", **kw)
             assert image_size(tmp_path / f"a{i}.jpg") == Image.open(tmp_path / f"a{i}.jpg").size == size
-    (tmp_path / "x.gif").write_bytes(b"GIF89a" + bytes(40))
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+    (tmp_path / "x.gif").write_bytes(b"GIF89a" + bytes(40))  # a GIF header and no image: PIL's open refuses it
+    with pytest.raises(OSError):  # UnidentifiedImageError
+        Image.open(tmp_path / "x.gif")
+    with pytest.raises(ValueError, match="image not found in the GIF frame"):
         image_size(tmp_path / "x.gif")
     (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(40))  # a BMP header of size 0, which PIL refuses too
     with pytest.raises(ValueError, match="PIL does not open a BMP"):
