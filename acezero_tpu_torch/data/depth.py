@@ -3,9 +3,9 @@
 Counterpart of acezero_tpu/data/depth.py. Depth maps seed the map through
 supervised scene coordinates, from one of the JAX package's plug points:
   - depth files: float `.npy` arrays in metres, or any image file that
-    `read_image` reads (a 16-bit PNG, TIFF or PGM in millimetres, a float
-    TIFF or PFM; a palette image such as a GIF gives its indices), its
-    values divided by 1,000 as the JAX package divides
+    `read_image` reads (a 16-bit PNG, TIFF, PGM or JPEG 2000 in
+    millimetres, a float TIFF or PFM; a palette image such as a GIF gives
+    its indices), its values divided by 1,000 as the JAX package divides
     `np.asarray(Image.open(path))`, float images too;
   - any callable `(rgb_uint8 HxWx3) -> depth_m HxW`, such as
     `learned_depth_estimator` (the seed-depth head on the encoder, run on

@@ -15,7 +15,10 @@ a `ModeImage` of mode P (the indices, the palette and the transparency
 index) or L (the grey levels and the transparency index, which an array
 cannot carry; and the global palette that PIL keeps under a local grey
 ramp, which its `convert("RGB")` goes through while its `convert("L")` is
-a copy of the grey levels and its BILINEAR `resize` raises). PNG, TIFF
+a copy of the grey levels and its BILINEAR `resize` raises). JPEG 2000
+files decode in io/csrc/jpeg2000.cpp (io/jpeg2000.py) to PIL's L, I;16,
+LA, RGB, RGBA, a `CmykImage`, or a `ModeImage` of mode P or PA (the
+indices, with the alpha band for PA, and the palette's RGB colours). PNG, TIFF
 (io/tiff.py), BMP (io/bmp.py) and Netpbm/PFM (io/pnm.py) files decode to
 an array whose
 dtype tells PIL's mode (bool 1, uint8 L, LA, RGB or RGBA, uint16 I;16,
@@ -73,7 +76,7 @@ from pathlib import Path
 import numpy as np
 
 from acezero_tpu_torch.data import native
-from acezero_tpu_torch.io import bmp, formats, gif, pnm, tiff, webp
+from acezero_tpu_torch.io import bmp, formats, gif, jpeg2000, pnm, tiff, webp
 from acezero_tpu_torch.io.formats import PNG_SIGNATURE as _PNG_SIGNATURE
 from acezero_tpu_torch.io.formats import image_size
 from acezero_tpu_torch.io.jpeg import read_jpeg
@@ -259,7 +262,8 @@ class CmykImage:
 class ModeImage:
     """A decoded image whose PIL mode its array does not tell: mode "P"
     (`pixels` the (h, w) uint8 palette indices, `palette` the (n, 3) uint8
-    colours; an index past the palette is black, as Pillow makes it),
+    colours; an index past the palette is black, as Pillow makes it), "PA"
+    (`pixels` the (h, w, 2) indices and alpha, `palette` as for P),
     "I;16B" (`pixels` the (h, w) uint16 values, which `np.asarray` of PIL's
     image gives as big-endian uint16), or a GIF's "L" (`pixels` the (h, w)
     uint8 grey levels; `palette` the global palette PIL keeps under a local
@@ -278,8 +282,8 @@ class ModeImage:
 
 def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     """Decode a PNG (`read_png`), JPEG (io/jpeg.py::read_jpeg), TIFF, BMP,
-    Netpbm/PFM, WebP or GIF file, told apart by its signature (module
-    note). Anything else raises ValueError."""
+    Netpbm/PFM, WebP, GIF or JPEG 2000 file, told apart by its signature
+    (module note). Anything else raises ValueError."""
     kind = formats.file_kind(path)
     if kind == "png":
         img, palette = _read_png_samples(path)
@@ -290,11 +294,12 @@ def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     if kind == "gif":
         r = gif.read_gif(path)
         return ModeImage(r.pixels, r.mode, r.palette, r.transparency)
-    if kind in ("tiff", "bmp", "pnm", "webp"):
-        r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm, "webp": webp.read_webp}[kind](path)
+    if kind in ("tiff", "bmp", "pnm", "webp", "jpeg2000"):
+        r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm, "webp": webp.read_webp,
+             "jpeg2000": jpeg2000.read_jpeg2000}[kind](path)
         if r.mode == "CMYK":
             return CmykImage(r.pixels)
-        if r.mode in ("P", "I;16B"):
+        if r.mode in ("P", "PA", "I;16B"):
             return ModeImage(r.pixels, r.mode, r.palette)
         return r.pixels
     raise ValueError(formats.refusal(path))
@@ -312,23 +317,24 @@ def pil_array(img) -> np.ndarray:
 
 
 def palette_rgb(img: ModeImage) -> np.ndarray:
-    """(h, w, 3) uint8: a mode-P image through its palette (PIL's
+    """(h, w, 3) uint8: a mode-P (or PA) image through its palette (PIL's
     `convert("RGB")`), indices past the palette black."""
     lut = np.zeros((256, 3), np.uint8)
     pal = np.asarray(img.palette, np.uint8).reshape(-1, 3)[:256]
     lut[: len(pal)] = pal
-    return np.take(lut, img.pixels, axis=0)  # a gather: faster than lut[pixels]
+    idx = img.pixels[..., 0] if img.mode == "PA" else img.pixels
+    return np.take(lut, idx, axis=0)  # a gather: faster than lut[pixels]
 
 
 def pil_uint8(img):
     """The 8-bit image PIL's conversions work from: 16-bit gray (I;16 and
     I;16B), I (int32) and F (float32) clipped to 0-255 (F truncated), as
     `convert("L")` makes them; mode 1 as 0 and 255; 16-bit colour (a PNG's)
-    as each sample's high byte, as PIL opens it; mode P through its palette
-    (`palette_rgb`); a GIF's mode L as its grey levels. 8-bit images and
-    `CmykImage`s come back as they are."""
+    as each sample's high byte, as PIL opens it; modes P and PA through the
+    palette (`palette_rgb`); a GIF's mode L as its grey levels. 8-bit images
+    and `CmykImage`s come back as they are."""
     if isinstance(img, ModeImage):
-        return palette_rgb(img) if img.mode == "P" else np.minimum(img.pixels, 255).astype(np.uint8)
+        return palette_rgb(img) if img.mode in ("P", "PA") else np.minimum(img.pixels, 255).astype(np.uint8)
     if isinstance(img, CmykImage) or img.dtype == np.uint8:
         return img
     if img.dtype == bool:

@@ -17,8 +17,11 @@ io/tiff.py (uncompressed, as PIL's default), a BMP by io/bmp.py (PIL's
 bytes), a PBM/PGM/PPM/PFM by io/pnm.py (PIL's bytes), a WebP by
 io/webp.py (lossless, see below), a GIF by io/gif.py (mode P or L, its
 palette and transparency index as PIL's save remaps them, so that it reads
-back as PIL's own file does; other bytes), a PNG by io/png.py (PIL's mode
-and pixels, other bytes); a suffix the port has no writer for raises
+back as PIL's own file does; other bytes), a JPEG 2000 by io/jpeg2000.py
+(lossless 5/3, a bare codestream for `.j2k` and JP2 boxes for the other
+suffixes, as PIL's save picks; it reads back as PIL's own lossless file
+does; other bytes), a PNG by io/png.py (PIL's mode and pixels, other
+bytes); a suffix the port has no writer for raises
 OSError (PIL raises for a suffix it does not know, and writes the other
 formats it knows). Modes L, RGB and CMYK take Pillow's
 8-bit bilinear resize (data/images.py::pil_resize_bilinear), I;16 and
@@ -27,7 +30,8 @@ takes them on a little-endian host), I and F its 32-bit one; LA and RGBA are
 premultiplied by alpha, resized and unpremultiplied, as Pillow does;
 16-bit colour is first made 8-bit as PIL opens it (`pil_uint8`). Modes P
 and 1 take Pillow's nearest-neighbour resize, on the palette indices or
-booleans (the palette kept). A GIF's transparency index goes with the
+booleans (the palette kept); a JPEG 2000's PA its 8-bit bilinear resize
+of the indices and the alpha band, as Pillow resizes PA. A GIF's transparency index goes with the
 image, as `info["transparency"]` goes with PIL's resize; a GIF of mode L
 that keeps a global palette under a local grey ramp raises ValueError, as
 PIL's BILINEAR resize of it does. A mode the format cannot hold raises
@@ -74,6 +78,8 @@ from acezero_tpu_torch.io.bmp import write_bmp
 from acezero_tpu_torch.io.gif import write_gif
 from acezero_tpu_torch.io.formats import image_size, pil_mode
 from acezero_tpu_torch.io.jpeg import write_jpeg
+from acezero_tpu_torch.io.jpeg2000 import SAVE_MODES as JPEG2000_MODES
+from acezero_tpu_torch.io.jpeg2000 import write_jpeg2000
 from acezero_tpu_torch.io.png import write_png
 from acezero_tpu_torch.io.pnm import write_pnm
 from acezero_tpu_torch.io.webp import write_webp
@@ -88,6 +94,7 @@ JPEG_MODES = ("1", "L", "RGB", "CMYK")  # the modes that PIL saves as JPEG (1 as
 TIFF_SUFFIXES = (".tif", ".tiff")
 PNM_SUFFIXES = (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")
 PNG_SUFFIXES = (".png", ".apng")
+JPEG2000_SUFFIXES = (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
 _LIBTIFF_WRITES = (tiff.LZW, tiff.PACKBITS, *tiff.DEFLATE)  # compressions PIL's save hands to libtiff
 
 
@@ -123,6 +130,8 @@ def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.nda
         return pil_resize_nearest(pil_array(img), new_h, new_w), mode, palette, transparency
     if mode == "L" and palette is not None:
         raise ValueError(f"{src}: image has wrong mode (a GIF of mode L over a palette, as PIL's resize says)")
+    if mode == "PA":  # Pillow resamples the index and alpha bands as bytes
+        return pil_resize_bilinear(img.pixels, new_h, new_w), mode, palette, None
     if mode == "I;16B":  # Pillow resamples the big-endian samples as little-endian ones
         out = pil_resize_bilinear(img.pixels.byteswap(), new_h, new_w).byteswap()
         if src.suffix.lower() in TIFF_SUFFIXES and tiff.tiff_compression(src) in _LIBTIFF_WRITES:
@@ -144,8 +153,8 @@ def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = No
     """PIL's `img.save(dst)` of an image of `mode` (with `info["transparency"]`
     = `transparency`), its format picked by the name: a JPEG, TIFF, BMP,
     PBM/PGM/PPM/PFM, WebP (lossless RGB or RGBA, where PIL writes lossy VP8:
-    module note), GIF or PNG for their suffixes; any other suffix raises
-    OSError."""
+    module note), GIF, JPEG 2000 or PNG for their suffixes; any other
+    suffix raises OSError."""
     suffix = dst.suffix.lower()
     if suffix in JPEG_SUFFIXES:
         if mode not in JPEG_MODES:
@@ -163,6 +172,11 @@ def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = No
         write_webp(dst, img)
     elif suffix == ".gif":
         write_gif(dst, img, mode, palette, transparency)
+    elif suffix in JPEG2000_SUFFIXES:
+        mode = "I;16" if mode == "I;16B" else mode  # PIL saves I;16B's values as I;16
+        if mode not in JPEG2000_MODES:
+            raise OSError(f"cannot write mode {mode} as JPEG 2000")
+        write_jpeg2000(dst, img, mode)
     elif suffix in PNG_SUFFIXES:
         write_png(dst, img, palette)
     else:

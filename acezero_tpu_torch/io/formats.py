@@ -2,15 +2,17 @@
 them without decoding: `image_size` (PIL's `Image.open(path).size`) and
 `pil_mode` (the mode PIL opens the file in), read from the headers of PNG,
 JPEG, TIFF (io/tiff.py), BMP (io/bmp.py), Netpbm/PFM (io/pnm.py), WebP
-(io/webp.py, after the container checks libwebp makes when PIL opens it)
-and GIF (io/gif.py, PIL's frame 0) files. A file PIL does not open, or
+(io/webp.py, after the container checks libwebp makes when PIL opens it),
+GIF (io/gif.py, PIL's frame 0) and JPEG 2000 (io/jpeg2000.py: a bare
+codestream or a JP2 file) files. A file PIL does not open, or
 opens as a kind the port does not read yet, raises ValueError naming the
 file and the kind.
 
-`Raster` is what the TIFF, BMP, PNM, WebP and GIF readers return: the
-pixels of `np.asarray(Image.open(path))` (for mode P the palette indices,
-for I;16B the values as native uint16), PIL's mode, for mode P the
-palette, and a GIF's transparency index (PIL's `info["transparency"]`).
+`Raster` is what the TIFF, BMP, PNM, WebP, GIF and JPEG 2000 readers
+return: the pixels of `np.asarray(Image.open(path))` (for modes P and PA
+the palette indices, for I;16B the values as native uint16), PIL's mode,
+for modes P and PA the palette, and a GIF's transparency index (PIL's
+`info["transparency"]`).
 data/images.py::read_image turns it into the port's image types.
 """
 
@@ -35,13 +37,12 @@ _PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16
               (16, 6): "RGBA"}
 _JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}  # by component count
 # signatures of formats PIL opens that the port does not read yet (ROADMAP.md's queue)
-_QUEUED = ((b"\x00\x00\x00\x0cjP  ", 0, b"", "JPEG 2000"), (b"\xffO\xffQ", 0, b"", "JPEG 2000"),
-           (b"8BPS", 0, b"", "PSD"), (b"qoif", 0, b"", "QOI"), (b"DDS ", 0, b"", "DDS"),
+_QUEUED = ((b"8BPS", 0, b"", "PSD"), (b"qoif", 0, b"", "QOI"), (b"DDS ", 0, b"", "DDS"),
            (b"\x00\x00\x01\x00", 0, b"", "ICO"), (b"icns", 0, b"", "ICNS"), (b"SIMPLE  =", 0, b"", "FITS"))
 
 
 # PIL's Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as many
-# pixels (a decompression bomb), and so do the TIFF, BMP, PNM, WebP and GIF readers
+# pixels (a decompression bomb), and so do the TIFF, BMP, PNM, WebP, GIF and JPEG 2000 readers
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
 
 
@@ -65,10 +66,10 @@ def mapped(path):
 
 
 class Raster(NamedTuple):
-    """A decoded TIFF, BMP, PNM, WebP or GIF image: `pixels` as `np.asarray`
-    of PIL's image gives them (I;16B as native uint16), PIL's `mode`, the
-    (n, 3) uint8 `palette` of a mode-P image (None otherwise), and a GIF's
-    `transparency` index (None otherwise)."""
+    """A decoded TIFF, BMP, PNM, WebP, GIF or JPEG 2000 image: `pixels` as
+    `np.asarray` of PIL's image gives them (I;16B as native uint16), PIL's
+    `mode`, the (n, 3) uint8 `palette` of a mode-P or PA image (None
+    otherwise), and a GIF's `transparency` index (None otherwise)."""
 
     pixels: np.ndarray
     mode: str
@@ -79,8 +80,9 @@ class Raster(NamedTuple):
 def kind(head: bytes) -> str | None:
     """The file kind its first bytes show: "png", "jpeg", "tiff", "bmp",
     "pnm", "webp" (RIFF, WEBP and a VP8, VP8L or VP8X chunk: Pillow's
-    test), "gif" (GIF87a or GIF89a), or None."""
-    from acezero_tpu_torch.io import bmp, gif, pnm, tiff, webp
+    test), "gif" (GIF87a or GIF89a), "jpeg2000" (a codestream's SOC and
+    SIZ, or the JP2 signature box), or None."""
+    from acezero_tpu_torch.io import bmp, gif, jpeg2000, pnm, tiff, webp
 
     if head.startswith(PNG_SIGNATURE):
         return "png"
@@ -96,6 +98,8 @@ def kind(head: bytes) -> str | None:
         return "webp"
     if gif.is_gif(head):
         return "gif"
+    if jpeg2000.is_jpeg2000(head):
+        return "jpeg2000"
     return None
 
 
@@ -111,8 +115,9 @@ def refusal(path) -> str:
         head = f.read(16)
     for sig, at, sub, name in _QUEUED:
         if head.startswith(sig) and head[at: at + len(sub)] == sub:
-            return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP or GIF file: {name}, not read yet"
-    return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP or GIF file"
+            return (f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP, GIF or JPEG 2000 file: "
+                    f"{name}, not read yet")
+    return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP, GIF or JPEG 2000 file"
 
 
 def _jpeg_frame(f, path) -> tuple[int, int, int]:
@@ -143,7 +148,7 @@ def _jpeg_frame(f, path) -> tuple[int, int, int]:
 
 def header(path) -> tuple[int, int, str]:
     """(width, height, PIL's mode) of an image file, from its header."""
-    from acezero_tpu_torch.io import bmp, gif, pnm, tiff, webp
+    from acezero_tpu_torch.io import bmp, gif, jpeg2000, pnm, tiff, webp
 
     with open(path, "rb") as f:
         head = f.read(26)
@@ -169,6 +174,8 @@ def header(path) -> tuple[int, int, str]:
         return webp.webp_header(path)
     if k == "gif":
         return gif.gif_header(path)[:3]
+    if k == "jpeg2000":
+        return jpeg2000.jpeg2000_header(path)
     raise ValueError(refusal(path))
 
 
@@ -181,5 +188,6 @@ def pil_mode(path: str | Path) -> str:
     """The mode PIL opens an image file in: for a PNG "1", "L", "I;16",
     "RGB", "P", "LA" or "RGBA" (16-bit gray+alpha opens as RGBA), for a JPEG
     "L", "RGB" or "CMYK"; for a WebP "RGB" or "RGBA"; for a GIF "P" or "L";
+    for a JPEG 2000 "L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P" or "PA";
     for TIFF, BMP and PNM files what their readers give. A file PIL does not open raises ValueError."""
     return header(path)[2]

@@ -18,9 +18,10 @@ Phases:
   1 build     nvcc builds every kernel of the paths from csrc/, in parallel,
               and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp),
               the canvas pass (data/csrc/canvas.cpp), the TIFF and BMP
-              codecs (io/csrc/tiff.cpp), the WebP codec (io/csrc/webp.cpp)
-              and the GIF codec (io/csrc/gif.cpp), with the compiler's
-              version and seconds
+              codecs (io/csrc/tiff.cpp), the WebP codec (io/csrc/webp.cpp),
+              the GIF codec (io/csrc/gif.cpp) and the JPEG 2000 codec
+              (io/csrc/jpeg2000.cpp), with the compiler's version and
+              seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
               events, median) and resources: K1 (head chain forward) and K2
@@ -70,7 +71,19 @@ Phases:
               just before and read just after) must give the PNG glob's
               poses; read_gif's ms and MP/s on a frame of JPEG_PHOTO_HW and
               decode_to_canvas of FORMAT_PHOTO_FRAMES such frames in the
-              same fresh process as the TIFF and WebP runs
+              same fresh process as the TIFF and WebP runs; then JPEG 2000
+              (io/jpeg2000.py, io/csrc/jpeg2000.cpp): the committed fixtures
+              (tests/data/jpeg2000: every mode, both wavelets, precincts,
+              tiles, layers, the five progressions, JP2 boxes; the refused
+              ones must raise) against PIL's digests, decode_to_canvas over
+              them and load_depth_file of the depth ones against the JAX
+              package's; the 60 frames as lossless JPEG 2000
+              (write_jpeg2000, JP2 and bare codestreams), whose canvases
+              must be the PNG glob's and whose register CLI run (K1 as many
+              as the TIFF glob's, K2 none; counts zeroed just before and
+              read just after) must give the PNG glob's poses; read_jpeg2000's
+              ms and MP/s on the committed lossy photo of JPEG_PHOTO_HW
+              (JPEG2000_PHOTO) against PIL's digest
   6 mapping   the train CLI end to end on the 60 frames and their shipped
               poses at full width (batch 5,120, 614,400 buffer rows): the
               pipeline's mapping recipe, then the same schedule with the
@@ -494,6 +507,8 @@ FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats"
 WEBP_FIXTURES = ROOT / "tests" / "data" / "webp"
 WEBP_PHOTO = "photo_lossy_q80.webp"  # the committed lossy photo read_webp is timed on
 GIF_FIXTURES = ROOT / "tests" / "data" / "gif"
+JPEG2000_FIXTURES = ROOT / "tests" / "data" / "jpeg2000"
+JPEG2000_PHOTO = JPEG2000_FIXTURES / "photo.jp2"  # JPEG_PHOTO_HW, lossy (scripts/make_jpeg2000_fixtures.py)
 JPEG_ROUNDTRIP = ((75, "4:2:0"), (90, "4:2:0"), (95, "4:4:4"), (75, "4:2:0"))
 JPEG_PHOTO_HW = (3286, 4946)
 JPEG_PHOTO_FRAMES = 8
@@ -541,6 +556,9 @@ RUNNER_SOURCES = {
     "palette.gif": ("P", (26, 900)),
     "gray.gif": ("L", (20, 660)),
     "palette_transparency.gif": ("P", (22, 960)),
+    "rgb.jp2": ("RGB", (34, 870)),
+    "gray16.j2k": ("I;16", (25, 700)),
+    "cmyk.jpx": ("CMYK", (21, 650)),
 }
 RUNNER_GIF_TRANSPARENCY = {"palette_transparency.gif": 5}  # the GIF sources' transparency index
 RUNNER_PALETTE = [(i * 37 % 256, i * 91 % 256, 255 - i * 16) for i in range(16)]  # palette.png's colours
@@ -997,6 +1015,7 @@ def write_runner_sources(np, out: Path) -> list[str]:
     """Write the runner sources into `out` with the port's writers, the
     palette, 1-bit and GIF ones copied from RUNNER_FIXTURES; their paths."""
     from acezero_tpu_torch.io.jpeg import write_jpeg
+    from acezero_tpu_torch.io.jpeg2000 import write_jpeg2000
     from acezero_tpu_torch.io.png import write_png
 
     out.mkdir(parents=True, exist_ok=True)
@@ -1007,6 +1026,8 @@ def write_runner_sources(np, out: Path) -> list[str]:
             shutil.copyfile(RUNNER_FIXTURES / name, dst)
         elif name.endswith(".jpg"):
             write_jpeg(dst, runner_source(np, name))
+        elif name.endswith((".jp2", ".j2k", ".jpx")):
+            write_jpeg2000(dst, runner_source(np, name), kind)
         else:
             write_png(dst, runner_source(np, name))
         paths.append(str(dst))
@@ -1348,6 +1369,7 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.io import tiff as ttiff
     from acezero_tpu_torch.io import webp as twebp
     from acezero_tpu_torch.io import gif as tgif
+    from acezero_tpu_torch.io import jpeg2000 as tj2k
     from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
     from acezero_tpu_torch.io.pose_files import write_pose_file
     from acezero_tpu_torch.data.augment import normalize_images
@@ -1380,9 +1402,9 @@ def main(argv=None) -> int:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
             # the host libraries (c++: the JPEG codec, the canvas pass, the
-            # TIFF and BMP codecs, the WebP codec and the GIF codec) build
+            # TIFF and BMP codecs, the WebP, GIF and JPEG 2000 codecs) build
             # while nvcc builds the kernels
-            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE, tgif.SOURCE)
+            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE, tgif.SOURCE, tj2k.SOURCE)
             with concurrent.futures.ThreadPoolExecutor(max_workers=len(host_sources)) as ex:
                 hosts = [ex.submit(build.build_host, src) for src in host_sources]
                 build.build([fh.KERNEL, fh.KERNEL_BWD])
@@ -1873,6 +1895,98 @@ def main(argv=None) -> int:
             require(g["fwd"] == format_launches["register_tiff"]["fwd"] > 0 and g["bwd"] == 0,
                     f"register_cli on the GIF glob: launches {g} (the TIFF glob's {format_launches['register_tiff']})")
             gif_seconds = time.perf_counter() - t0
+
+            # JPEG 2000: (a) the committed fixtures against PIL's digests
+            # (the refused ones must raise); (b) their canvases and depth
+            # maps against the JAX package's; (c) the 60 frames as lossless
+            # JPEG 2000 (write_jpeg2000, JP2 boxes and bare codestreams in
+            # turn): the PNG glob's canvases; (d) the register CLI (K1) the
+            # PNG glob's poses; (e) read_jpeg2000 on the committed lossy
+            # photo of JPEG_PHOTO_HW, against PIL's digest
+            t0 = time.perf_counter()
+            jdigests = json.loads((JPEG2000_FIXTURES / "pil_digests.json").read_text())
+            jchecks = {}
+            for name, want in sorted(jdigests["files"].items()):
+                path = JPEG2000_FIXTURES / name
+                if want.get("raises"):
+                    try:
+                        read_image(path)
+                        jchecks[name] = False
+                    except ValueError as e:
+                        jchecks[name] = str(path) in str(e)
+                    continue
+                img = read_image(path)
+                arr = pil_array(img)
+                jchecks[name] = (tformats.pil_mode(path) == want["mode"]
+                                 and list(tformats.image_size(path)) == want["size"]
+                                 and arr.dtype.str == want["dtype"] and list(arr.shape) == want["shape"]
+                                 and array_digest(arr) == want["sha256"]
+                                 and palette_digest(np, getattr(img, "palette", None)) == want["palette"]
+                                 and array_digest(read_rgb(path)) == want["rgb_sha256"])
+            jbad = sorted(n for n, ok in jchecks.items() if not ok)
+            rec["jpeg2000_library"] = build.host_target(tj2k.SOURCE).name
+            rec["jpeg2000_build_seconds"] = build.build_info[tj2k.SOURCE.stem]["seconds"]
+            rec["jpeg2000_fixtures_equal_to_pil"] = f"{len(jchecks) - len(jbad)}/{len(jchecks)}"
+            require(jchecks and not jbad, f"JPEG 2000 fixtures not decoded as PIL decodes them: {jbad}")
+            jpaths = sorted(str(JPEG2000_FIXTURES / n) for n, want in jdigests["files"].items() if not want.get("raises"))
+            jcanvas = []
+            for entry in jdigests["canvas"]:
+                hw = None if entry["canvas_hw"] is None else tuple(entry["canvas_hw"])
+                out = decode_to_canvas(jpaths, short_size=entry["short_size"], canvas_hw=hw, num_workers=4)
+                jcanvas.append({"short_size": entry["short_size"], "canvas_hw": entry["canvas_hw"],
+                                "equal_to_jax": canvas_digest(out) == entry["sha256"]})
+            jdepth = {n: array_digest(load_depth_file(JPEG2000_FIXTURES / n)) == want
+                      for n, want in jdigests["depth"].items()}
+            rec["jpeg2000_canvas"] = jcanvas
+            rec["jpeg2000_depth_equal_to_jax"] = f"{sum(jdepth.values())}/{len(jdepth)}"
+            require(len(jcanvas) == 2 and all(c["equal_to_jax"] for c in jcanvas) and jdepth and all(jdepth.values()),
+                    f"the JPEG 2000 fixtures' canvases or depth maps are not the JAX package's: {jcanvas}, {jdepth}")
+            (tmp / "jpeg2000").mkdir()
+
+            def make_j2k(i_f):
+                i, f = i_f
+                gray = read_png(f)
+                t1 = time.perf_counter()
+                tj2k.write_jpeg2000(tmp / "jpeg2000" / f"{Path(f).stem}.{('jp2', 'j2k')[i % 2]}", gray, "L")
+                return time.perf_counter() - t1
+
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                write_s = list(ex.map(make_j2k, enumerate(frames)))
+            j2k_files = sorted(glob.glob(str(tmp / "jpeg2000" / "frame_*")))
+            j2k_modes = {tformats.pil_mode(p_) for p_ in j2k_files}
+            rec["jpeg2000_glob"] = {"frames": len(j2k_files), "mean_bytes": statistics.mean(
+                Path(p_).stat().st_size for p_ in j2k_files), "write_ms": statistics.median(write_s) * 1e3}
+            rec["jpeg2000_canvases_equal_to_png"] = j2k_modes == {"L"} and len(j2k_files) == N_FRAMES and canvas_digest(
+                decode_to_canvas(j2k_files, short_size=480)) == want_canvas
+            require(rec["jpeg2000_canvases_equal_to_png"],
+                    f"the JPEG 2000 glob's canvases differ from the PNG glob's ({j2k_modes})")
+            net = tmp / "head_jpeg2000.pt"
+            shutil.copy(HEAD, net)
+            argv = [str(tmp / "jpeg2000" / "frame_*"), str(net), "--encoder_path", str(ENCODER),
+                    "--use_external_focal_length", str(FOCAL), "--session", "jpeg2000", "--device", DEVICE]
+            fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+            t1 = time.perf_counter()
+            require(register_cli.main(argv) == 0, "register_cli failed on the JPEG 2000 glob")
+            torch.cuda.synchronize()
+            format_launches["register_jpeg2000"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                                    "seconds": time.perf_counter() - t1}
+            j2k_poses = [ln.split()[1:] for ln in (tmp / "poses_jpeg2000.txt").read_text().splitlines()]
+            rec["jpeg2000_register_poses_equal"] = j2k_poses == poses["png"] and len(j2k_poses) == N_FRAMES
+            require(rec["jpeg2000_register_poses_equal"], "register_cli gives other poses on the JPEG 2000 glob")
+            j = format_launches["register_jpeg2000"]
+            require(j["fwd"] == format_launches["register_tiff"]["fwd"] > 0 and j["bwd"] == 0,
+                    f"register_cli on the JPEG 2000 glob: launches {j} (the TIFF glob's {format_launches['register_tiff']})")
+            t1 = time.perf_counter()
+            r = tj2k.read_jpeg2000(JPEG2000_PHOTO)
+            read_s = time.perf_counter() - t1
+            mp = r.pixels.shape[0] * r.pixels.shape[1] / 1e6
+            rec["jpeg2000_photo"] = {"bytes": JPEG2000_PHOTO.stat().st_size, "hw": list(r.pixels.shape[:2]),
+                                     "read_jpeg2000_ms": read_s * 1e3, "read_jpeg2000_mp_per_s": mp / read_s,
+                                     "equal_to_pil": r.mode == jdigests["photo"]["mode"]
+                                     and array_digest(r.pixels) == jdigests["photo"]["sha256"]}
+            del r
+            require(rec["jpeg2000_photo"]["equal_to_pil"], "the JPEG 2000 photo does not decode to PIL's pixels")
+            rec["jpeg2000_seconds"] = time.perf_counter() - t0
 
             # (c) photo-size frames: the chesslike frames enlarged to
             # JPEG_PHOTO_HW and tinted, as each of FORMAT_PHOTO_KINDS, as

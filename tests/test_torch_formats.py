@@ -542,14 +542,21 @@ def _queued_files(tmp_path) -> dict:
         buf = io.BytesIO()
         Image.fromarray(rgb).save(buf, format=fmt)
         put(f"frame.{fmt.lower()}", buf.getvalue())
+    for suffix in ("jp2", "j2k"):
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format="JPEG2000", no_jp2=suffix == "j2k")
+        put(f"frame.{suffix}", buf.getvalue())
     return out
 
 
 QUEUED = ("ccitt_g4.tif", "old_jpeg.tif", "ycbcr_raw.tif", "lab.tif", "pa.tif", "gray12.tif", "float_mm_deflate.tif",
-          "bigtiff.tif", "rgba16_assoc.tif", "rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif")
+          "bigtiff.tif", "rgba16_assoc.tif", "rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif",
+          "frame.jp2", "frame.j2k")
 # queued once, read since: a GIF frame (tests/test_torch_gif.py holds every
-# kind), an RLE delta escape, a 4-bit gray palette, Pillow's own PyP
-READ_SINCE = ("rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif")
+# kind), an RLE delta escape, a 4-bit gray palette, Pillow's own PyP, a
+# JPEG 2000 frame in JP2 boxes and as a bare codestream
+# (tests/test_torch_jpeg2000.py holds every kind)
+READ_SINCE = ("rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif", "frame.jp2", "frame.j2k")
 
 
 @pytest.mark.parametrize("name", QUEUED)
