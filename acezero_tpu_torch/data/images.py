@@ -76,7 +76,7 @@ from pathlib import Path
 import numpy as np
 
 from acezero_tpu_torch.data import native
-from acezero_tpu_torch.io import bmp, formats, gif, jpeg2000, pnm, tiff, webp
+from acezero_tpu_torch.io import bmp, dcx, formats, gif, jpeg2000, pcx, pnm, qoi, sgi, sun, tga, tiff, webp
 from acezero_tpu_torch.io.formats import PNG_SIGNATURE as _PNG_SIGNATURE
 from acezero_tpu_torch.io.formats import image_size
 from acezero_tpu_torch.io.jpeg import read_jpeg
@@ -265,9 +265,12 @@ class ModeImage:
     colours; an index past the palette is black, as Pillow makes it), "PA"
     (`pixels` the (h, w, 2) indices and alpha, `palette` as for P),
     "I;16B" (`pixels` the (h, w) uint16 values, which `np.asarray` of PIL's
-    image gives as big-endian uint16), or a GIF's "L" (`pixels` the (h, w)
-    uint8 grey levels; `palette` the global palette PIL keeps under a local
-    grey ramp, or None). `transparency` is a GIF's transparency index (PIL's
+    image gives as big-endian uint16), a GIF's or TGA's "L" (`pixels` the
+    (h, w) uint8 grey levels; `palette` the global palette PIL keeps under a
+    GIF's local grey ramp, or a TGA's colour map, or None), or a TGA's "LA"
+    with a colour map under it (`pixels` the (h, w, 2) values; PIL's
+    conversions take the first band as indices into the map, as for PA).
+    `transparency` is a GIF's transparency index (PIL's
     `info["transparency"]`), which the Nerfstudio runner writes back."""
 
     pixels: np.ndarray
@@ -280,10 +283,16 @@ class ModeImage:
         return self.pixels.shape
 
 
+_READERS = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm, "webp": webp.read_webp,
+            "jpeg2000": jpeg2000.read_jpeg2000, "tga": tga.read_tga, "sgi": sgi.read_sgi, "pcx": pcx.read_pcx,
+            "dcx": dcx.read_dcx, "sun": sun.read_sun, "qoi": qoi.read_qoi}
+
+
 def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     """Decode a PNG (`read_png`), JPEG (io/jpeg.py::read_jpeg), TIFF, BMP,
-    Netpbm/PFM, WebP, GIF or JPEG 2000 file, told apart by its signature
-    (module note). Anything else raises ValueError."""
+    Netpbm/PFM, WebP, GIF, JPEG 2000, TGA, SGI, PCX, DCX, Sun raster or QOI
+    file, told apart as PIL tells them apart (io/formats.py::kind; module
+    note). Anything else raises ValueError."""
     kind = formats.file_kind(path)
     if kind == "png":
         img, palette = _read_png_samples(path)
@@ -294,12 +303,11 @@ def read_image(path) -> "np.ndarray | CmykImage | ModeImage":
     if kind == "gif":
         r = gif.read_gif(path)
         return ModeImage(r.pixels, r.mode, r.palette, r.transparency)
-    if kind in ("tiff", "bmp", "pnm", "webp", "jpeg2000"):
-        r = {"tiff": tiff.read_tiff, "bmp": bmp.read_bmp, "pnm": pnm.read_pnm, "webp": webp.read_webp,
-             "jpeg2000": jpeg2000.read_jpeg2000}[kind](path)
+    if kind in _READERS:
+        r = _READERS[kind](path)
         if r.mode == "CMYK":
             return CmykImage(r.pixels)
-        if r.mode in ("P", "PA", "I;16B"):
+        if r.mode in ("P", "PA", "I;16B") or r.palette is not None:
             return ModeImage(r.pixels, r.mode, r.palette)
         return r.pixels
     raise ValueError(formats.refusal(path))
@@ -317,12 +325,13 @@ def pil_array(img) -> np.ndarray:
 
 
 def palette_rgb(img: ModeImage) -> np.ndarray:
-    """(h, w, 3) uint8: a mode-P (or PA) image through its palette (PIL's
-    `convert("RGB")`), indices past the palette black."""
+    """(h, w, 3) uint8: a mode-P (or PA, or LA over a colour map) image
+    through its palette (PIL's `convert("RGB")`), indices past the palette
+    black."""
     lut = np.zeros((256, 3), np.uint8)
     pal = np.asarray(img.palette, np.uint8).reshape(-1, 3)[:256]
     lut[: len(pal)] = pal
-    idx = img.pixels[..., 0] if img.mode == "PA" else img.pixels
+    idx = img.pixels[..., 0] if img.pixels.ndim == 3 else img.pixels
     return np.take(lut, idx, axis=0)  # a gather: faster than lut[pixels]
 
 
@@ -330,11 +339,14 @@ def pil_uint8(img):
     """The 8-bit image PIL's conversions work from: 16-bit gray (I;16 and
     I;16B), I (int32) and F (float32) clipped to 0-255 (F truncated), as
     `convert("L")` makes them; mode 1 as 0 and 255; 16-bit colour (a PNG's)
-    as each sample's high byte, as PIL opens it; modes P and PA through the
-    palette (`palette_rgb`); a GIF's mode L as its grey levels. 8-bit images
-    and `CmykImage`s come back as they are."""
+    as each sample's high byte, as PIL opens it; modes P and PA, and LA with
+    a colour map under it, through the palette (`palette_rgb`); mode L with
+    a palette under it as its grey levels. 8-bit images and `CmykImage`s
+    come back as they are."""
     if isinstance(img, ModeImage):
-        return palette_rgb(img) if img.mode in ("P", "PA") else np.minimum(img.pixels, 255).astype(np.uint8)
+        if img.mode in ("P", "PA") or (img.mode == "LA" and img.palette is not None):
+            return palette_rgb(img)
+        return np.minimum(img.pixels, 255).astype(np.uint8)
     if isinstance(img, CmykImage) or img.dtype == np.uint8:
         return img
     if img.dtype == bool:

@@ -20,10 +20,14 @@ palette and transparency index as PIL's save remaps them, so that it reads
 back as PIL's own file does; other bytes), a JPEG 2000 by io/jpeg2000.py
 (lossless 5/3, a bare codestream for `.j2k` and JP2 boxes for the other
 suffixes, as PIL's save picks; it reads back as PIL's own lossless file
-does; other bytes), a PNG by io/png.py (PIL's mode and pixels, other
-bytes); a suffix the port has no writer for raises
-OSError (PIL raises for a suffix it does not know, and writes the other
-formats it knows). Modes L, RGB and CMYK take Pillow's
+does; other bytes), a TGA by io/tga.py (PIL's bytes, raw or run-length,
+its rows' order and ID section those of a TGA source, as PIL's `info`
+carries them through the resize into the save), an SGI by io/sgi.py, a PCX
+by io/pcx.py and a QOI by io/qoi.py (PIL's bytes), a PNG by io/png.py
+(PIL's mode and pixels, other bytes); a suffix the port has no writer for
+raises OSError (PIL raises for a suffix it does not know, and writes the
+other formats it knows, but for Sun raster and DCX, which it only reads:
+there it raises KeyError). Modes L, RGB and CMYK take Pillow's
 8-bit bilinear resize (data/images.py::pil_resize_bilinear), I;16 and
 I;16B its 16-bit one (I;16B's bytes taken in the wrong order, as Pillow
 takes them on a little-endian host), I and F its 32-bit one; LA and RGBA are
@@ -33,8 +37,9 @@ and 1 take Pillow's nearest-neighbour resize, on the palette indices or
 booleans (the palette kept); a JPEG 2000's PA its 8-bit bilinear resize
 of the indices and the alpha band, as Pillow resizes PA. A GIF's transparency index goes with the
 image, as `info["transparency"]` goes with PIL's resize; a GIF of mode L
-that keeps a global palette under a local grey ramp raises ValueError, as
-PIL's BILINEAR resize of it does. A mode the format cannot hold raises
+that keeps a global palette under a local grey ramp, or a TGA of mode L or
+LA over a colour map, raises ValueError, as PIL's BILINEAR resize of it
+does. A mode the format cannot hold raises
 OSError, as PIL's save does.
 
 PIL's save of a TIFF it opened keeps the source's compression. The port
@@ -73,15 +78,19 @@ from acezero_tpu_torch.data.images import (
     read_image,
 )
 from acezero_tpu_torch.export.nerf import export_transforms_json
-from acezero_tpu_torch.io import tiff
+from acezero_tpu_torch.io import tga, tiff
 from acezero_tpu_torch.io.bmp import write_bmp
 from acezero_tpu_torch.io.gif import write_gif
-from acezero_tpu_torch.io.formats import image_size, pil_mode
+from acezero_tpu_torch.io.formats import file_kind, image_size, pil_mode
 from acezero_tpu_torch.io.jpeg import write_jpeg
 from acezero_tpu_torch.io.jpeg2000 import SAVE_MODES as JPEG2000_MODES
 from acezero_tpu_torch.io.jpeg2000 import write_jpeg2000
+from acezero_tpu_torch.io.pcx import write_pcx
 from acezero_tpu_torch.io.png import write_png
 from acezero_tpu_torch.io.pnm import write_pnm
+from acezero_tpu_torch.io.qoi import write_qoi
+from acezero_tpu_torch.io.sgi import SUFFIXES as SGI_SUFFIXES
+from acezero_tpu_torch.io.sgi import write_sgi
 from acezero_tpu_torch.io.webp import write_webp
 
 _logger = logging.getLogger(__name__)
@@ -128,8 +137,8 @@ def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.nda
     transparency = img.transparency if isinstance(img, ModeImage) else None
     if mode in ("P", "1"):  # Pillow resizes these nearest-neighbour whatever filter is asked for
         return pil_resize_nearest(pil_array(img), new_h, new_w), mode, palette, transparency
-    if mode == "L" and palette is not None:
-        raise ValueError(f"{src}: image has wrong mode (a GIF of mode L over a palette, as PIL's resize says)")
+    if mode in ("L", "LA") and palette is not None:
+        raise ValueError(f"{src}: image has wrong mode (mode {mode} over a palette, as PIL's resize says)")
     if mode == "PA":  # Pillow resamples the index and alpha bands as bytes
         return pil_resize_bilinear(img.pixels, new_h, new_w), mode, palette, None
     if mode == "I;16B":  # Pillow resamples the big-endian samples as little-endian ones
@@ -149,13 +158,15 @@ def _resized(src: Path, new_w: int, new_h: int) -> tuple[np.ndarray, str, np.nda
 
 
 def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = None,
-          transparency: int | None = None) -> None:
+          transparency: int | None = None, info: dict | None = None) -> None:
     """PIL's `img.save(dst)` of an image of `mode` (with `info["transparency"]`
-    = `transparency`), its format picked by the name: a JPEG, TIFF, BMP,
-    PBM/PGM/PPM/PFM, WebP (lossless RGB or RGBA, where PIL writes lossy VP8:
-    module note), GIF, JPEG 2000 or PNG for their suffixes; any other
+    = `transparency`, and a TGA source's `info`: tga.TgaHeader.info), its
+    format picked by the name: a JPEG, TIFF, BMP, PBM/PGM/PPM/PFM, WebP
+    (lossless RGB or RGBA, where PIL writes lossy VP8: module note), GIF,
+    JPEG 2000, TGA, SGI, PCX, QOI or PNG for their suffixes; any other
     suffix raises OSError."""
     suffix = dst.suffix.lower()
+    info = info or {}
     if suffix in JPEG_SUFFIXES:
         if mode not in JPEG_MODES:
             raise OSError(f"cannot write mode {mode} as JPEG")
@@ -177,6 +188,15 @@ def _save(dst: Path, img: np.ndarray, mode: str, palette: np.ndarray | None = No
         if mode not in JPEG2000_MODES:
             raise OSError(f"cannot write mode {mode} as JPEG 2000")
         write_jpeg2000(dst, img, mode)
+    elif suffix in tga.SUFFIXES:
+        tga.write_tga(dst, img, mode, palette, info.get("compression"), info.get("orientation", -1),
+                      info.get("id_section", b""))
+    elif suffix in SGI_SUFFIXES:
+        write_sgi(dst, img, mode)
+    elif suffix == ".pcx":
+        write_pcx(dst, img, mode, palette)
+    elif suffix == ".qoi":
+        write_qoi(dst, img, mode)
     elif suffix in PNG_SUFFIXES:
         write_png(dst, img, palette)
     else:
@@ -196,7 +216,8 @@ def _downscale_images(transforms_path: Path, workdir: Path) -> None:
             continue
         new_size = (round(width * scale), round(height * scale))
         dst = img_dir / src.name
-        _save(dst, *_resized(src, *new_size))
+        info = tga.tga_header(src).info if file_kind(src) == "tga" else None
+        _save(dst, *_resized(src, *new_size), info=info)
         for key, factor in (("fl_x", scale), ("fl_y", scale), ("cx", scale), ("cy", scale)):
             frame[key] = frame[key] * factor
         frame["w"], frame["h"] = new_size

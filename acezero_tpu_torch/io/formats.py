@@ -1,26 +1,39 @@
-"""Image file kinds, told apart by their signatures, and what PIL makes of
-them without decoding: `image_size` (PIL's `Image.open(path).size`) and
-`pil_mode` (the mode PIL opens the file in), read from the headers of PNG,
-JPEG, TIFF (io/tiff.py), BMP (io/bmp.py), Netpbm/PFM (io/pnm.py), WebP
-(io/webp.py, after the container checks libwebp makes when PIL opens it),
-GIF (io/gif.py, PIL's frame 0) and JPEG 2000 (io/jpeg2000.py: a bare
-codestream or a JP2 file) files. A file PIL does not open, or
-opens as a kind the port does not read yet, raises ValueError naming the
-file and the kind.
+"""Image file kinds, told apart as PIL's `Image.open` tells them apart,
+and what PIL makes of them without decoding: `image_size` (PIL's
+`Image.open(path).size`) and `pil_mode` (the mode PIL opens the file in),
+read from the headers of PNG, JPEG, TIFF (io/tiff.py), BMP (io/bmp.py),
+Netpbm/PFM (io/pnm.py), WebP (io/webp.py, after the container checks
+libwebp makes when PIL opens it), GIF (io/gif.py, PIL's frame 0), JPEG 2000
+(io/jpeg2000.py: a bare codestream or a JP2 file), TGA (io/tga.py), SGI
+(io/sgi.py), PCX (io/pcx.py), DCX (io/dcx.py, its first page), Sun raster
+(io/sun.py) and QOI (io/qoi.py) files. A file PIL does not open, or opens
+as a kind the port does not read yet, raises ValueError naming the file
+and the kind.
 
-`Raster` is what the TIFF, BMP, PNM, WebP, GIF and JPEG 2000 readers
-return: the pixels of `np.asarray(Image.open(path))` (for modes P and PA
-the palette indices, for I;16B the values as native uint16), PIL's mode,
-for modes P and PA the palette, and a GIF's transparency index (PIL's
-`info["transparency"]`).
+TGA has no signature: Pillow tries it after every plugin before it in its
+order and takes a file whose header passes its checks. `kind` does the
+same: it claims TGA only for a file that no kind before it claims, where a
+PCX whose header Pillow gives up on (`pcx.falls_through`) goes on to the
+later kinds as Pillow goes on to the later plugins, and where no plugin
+that Pillow tries first and the port does not read would take the file
+(`_pil_first`, and the queued kinds, refused by their own names).
+
+`Raster` is what the TIFF, BMP, PNM, WebP, GIF, JPEG 2000, TGA, SGI, PCX,
+DCX, Sun raster and QOI readers return: the pixels of
+`np.asarray(Image.open(path))` (for modes P and PA the palette indices, for
+I;16B the values as native uint16), PIL's mode, for modes P and PA the
+palette (and for a TGA's L and LA the colour map PIL keeps under them),
+and a GIF's transparency index (PIL's `info["transparency"]`).
 data/images.py::read_image turns it into the port's image types.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import mmap
 import os
+import re
 import struct
 from pathlib import Path
 from typing import NamedTuple
@@ -37,12 +50,17 @@ _PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16
               (16, 6): "RGBA"}
 _JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}  # by component count
 # signatures of formats PIL opens that the port does not read yet (ROADMAP.md's queue)
-_QUEUED = ((b"8BPS", 0, b"", "PSD"), (b"qoif", 0, b"", "QOI"), (b"DDS ", 0, b"", "DDS"),
-           (b"\x00\x00\x01\x00", 0, b"", "ICO"), (b"icns", 0, b"", "ICNS"), (b"SIMPLE  =", 0, b"", "FITS"))
+_QUEUED = ((b"8BPS", 0, b"", "PSD"), (b"DDS ", 0, b"", "DDS"), (b"\x00\x00\x01\x00", 0, b"", "ICO"),
+           (b"\x00\x00\x02\x00", 0, b"", "CUR"), (b"icns", 0, b"", "ICNS"), (b"SIMPLE  =", 0, b"", "FITS"))
+_READ = ("a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP, GIF or JPEG 2000 file, nor a TGA, SGI, PCX, DCX, "
+         "Sun raster or QOI file")
+# Pillow's SPIDER header test: the header values that must be integers
+_SPIDER_INTS = (1, 2, 5, 12, 13, 22, 23)
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 
 
 # PIL's Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as many
-# pixels (a decompression bomb), and so do the TIFF, BMP, PNM, WebP, GIF and JPEG 2000 readers
+# pixels (a decompression bomb), and so do the port's readers
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
 
 
@@ -66,9 +84,9 @@ def mapped(path):
 
 
 class Raster(NamedTuple):
-    """A decoded TIFF, BMP, PNM, WebP, GIF or JPEG 2000 image: `pixels` as
-    `np.asarray` of PIL's image gives them (I;16B as native uint16), PIL's
-    `mode`, the (n, 3) uint8 `palette` of a mode-P or PA image (None
+    """A decoded image: `pixels` as `np.asarray` of PIL's image gives them
+    (I;16B as native uint16), PIL's `mode`, the (n, 3) uint8 `palette` of a
+    mode-P or PA image (and the colour map under a TGA's L or LA; None
     otherwise), and a GIF's `transparency` index (None otherwise)."""
 
     pixels: np.ndarray
@@ -78,46 +96,112 @@ class Raster(NamedTuple):
 
 
 def kind(head: bytes) -> str | None:
-    """The file kind its first bytes show: "png", "jpeg", "tiff", "bmp",
-    "pnm", "webp" (RIFF, WEBP and a VP8, VP8L or VP8X chunk: Pillow's
-    test), "gif" (GIF87a or GIF89a), "jpeg2000" (a codestream's SOC and
-    SIZ, or the JP2 signature box), or None."""
-    from acezero_tpu_torch.io import bmp, gif, jpeg2000, pnm, tiff, webp
+    """The file kind its first bytes show (all of a file of up to 2,052
+    bytes, or its first 2,052): "png", "jpeg", "tiff", "bmp", "pnm", "webp"
+    (RIFF, WEBP and a VP8, VP8L or VP8X chunk: Pillow's test), "gif" (GIF87a
+    or GIF89a), "jpeg2000" (a codestream's SOC and SIZ, or the JP2
+    signature box), "sgi", "sun", "qoi", "dcx", "pcx" (a header Pillow's
+    plugin keeps), "tga" (module note), or None."""
+    from acezero_tpu_torch.io import bmp, dcx, gif, jpeg2000, pcx, pnm, qoi, sgi, sun, tga, tiff, webp
 
     if head.startswith(PNG_SIGNATURE):
         return "png"
     if head.startswith(JPEG_SIGNATURE):
         return "jpeg"
-    if tiff.is_tiff(head):
-        return "tiff"
-    if bmp.is_bmp(head):
-        return "bmp"
-    if pnm.is_pnm(head):
-        return "pnm"
-    if webp.is_webp(head):
-        return "webp"
-    if gif.is_gif(head):
-        return "gif"
-    if jpeg2000.is_jpeg2000(head):
-        return "jpeg2000"
+    for name, test in (("tiff", tiff.is_tiff), ("bmp", bmp.is_bmp), ("pnm", pnm.is_pnm), ("webp", webp.is_webp),
+                       ("gif", gif.is_gif), ("jpeg2000", jpeg2000.is_jpeg2000), ("sgi", sgi.is_sgi),
+                       ("sun", sun.is_sun), ("qoi", qoi.is_qoi), ("dcx", dcx.is_dcx)):
+        if test(head):
+            return name
+    if pcx.is_pcx(head) and not pcx.falls_through(head[:68]):
+        return "pcx"
+    if _queued(head) or _pil_first(head):
+        return None
+    if tga.is_tga(head):
+        return "tga"
     return None
+
+
+def _queued(head: bytes) -> str | None:
+    """The queued format whose signature `head` shows. An ICO or CUR
+    directory of no entries makes Pillow's plugin give up (so an RGB TGA,
+    which starts as a CUR does, goes on to TGA)."""
+    for sig, at, sub, name in _QUEUED:
+        if head.startswith(sig) and head[at: at + len(sub)] == sub:
+            if name in ("ICO", "CUR") and (len(head) < 6 or struct.unpack_from("<H", head, 4)[0] == 0):
+                continue
+            return name
+    return None
+
+
+def _spider(head: bytes) -> bool:
+    """SpiderImagePlugin's header test, either byte order, of a 2-D image."""
+    if len(head) < 108:
+        return False
+    for order in ">", "<":
+        h = (99.0, *struct.unpack(order + "27f", head[:108]))
+        if not all(math.isfinite(h[i]) and h[i] == int(h[i]) for i in _SPIDER_INTS):
+            continue
+        if int(h[5]) not in (1, 3, -11, -12, -21, -22) or int(h[22]) != int(h[13]) * int(h[23]):
+            continue
+        return int(h[5]) == 1
+    return False
+
+
+def _im_first_line(head: bytes) -> bool:
+    """Whether the first line ImImagePlugin reads passes its syntax check
+    (a CR before it is skipped, a line of over 100 bytes refused)."""
+    if b"\n" not in head[:100]:
+        return False
+    line = head.lstrip(b"\r").split(b"\n", 1)[0]
+    if not line or line[:1] in (b"\0", b"\x1a") or len(line) + 1 > 100:
+        return False
+    return _IM_LINE.match(line.rstrip(b"\r")) is not None
+
+
+def _pil_first(head: bytes) -> str | None:
+    """The plugin that Pillow tries before TGA, and that the port does not
+    read, which would take a header TGA's checks also pass: AVIF, FLI,
+    MPEG, IM, IPTC, PCD or SPIDER (their `_accept` tests and the first
+    checks of their `_open`). GBR's colour depth field is TGA's depth byte
+    followed by three more, never 1 or 4, so it takes no TGA."""
+    if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis", b"mif1", b"msf1"):
+        return "AVIF"
+    if (len(head) >= 128 and struct.unpack_from("<H", head, 4)[0] in (0xAF11, 0xAF12)
+            and struct.unpack_from("<H", head, 14)[0] in (0, 3) and not any(head[20:22] + head[42:80] + head[88:128])
+            and all(struct.unpack_from("<HH", head, 8))):
+        return "FLI"
+    if head.startswith(b"\x00\x00\x01\xb3") and len(head) >= 7 and head[4] << 4 | head[5] >> 4 \
+            and (head[5] & 15) << 8 | head[6]:
+        return "MPEG"
+    if _im_first_line(head):
+        return "IM"
+    if len(head) >= 2 and head[0] == 0x1C and head[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        return "IPTC"
+    if head[2048:2052] == b"PCD_":
+        return "PCD"
+    if _spider(head):
+        return "SPIDER"
+    return None
+
+
+HEAD_BYTES = 2052
 
 
 def file_kind(path) -> str | None:
     with open(path, "rb") as f:
-        return kind(f.read(16))
+        return kind(f.read(HEAD_BYTES))
 
 
 def refusal(path) -> str:
     """The message for a file of no kind the port reads: what it is not,
     and the format when its signature shows one PIL opens."""
     with open(path, "rb") as f:
-        head = f.read(16)
-    for sig, at, sub, name in _QUEUED:
-        if head.startswith(sig) and head[at: at + len(sub)] == sub:
-            return (f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP, GIF or JPEG 2000 file: "
-                    f"{name}, not read yet")
-    return f"{path}: neither a PNG nor a JPEG, TIFF, BMP, Netpbm, PFM, WebP, GIF or JPEG 2000 file"
+        head = f.read(HEAD_BYTES)
+    name = _queued(head) or _pil_first(head)
+    if name:
+        return f"{path}: neither {_READ}: {name}, not read yet"
+    return f"{path}: neither {_READ}"
 
 
 def _jpeg_frame(f, path) -> tuple[int, int, int]:
@@ -148,34 +232,29 @@ def _jpeg_frame(f, path) -> tuple[int, int, int]:
 
 def header(path) -> tuple[int, int, str]:
     """(width, height, PIL's mode) of an image file, from its header."""
-    from acezero_tpu_torch.io import bmp, gif, jpeg2000, pnm, tiff, webp
+    from acezero_tpu_torch.io import bmp, dcx, gif, jpeg2000, pcx, pnm, qoi, sgi, sun, tga, tiff, webp
 
-    with open(path, "rb") as f:
-        head = f.read(26)
-        k = kind(head)
-        if k == "png" and head[12:16] == b"IHDR" and len(head) == 26:
-            width, height, depth, ctype = struct.unpack(">IIBB", head[16:26])
-            mode = _PNG_MODES.get((depth, ctype))
-            if mode is None:
-                raise ValueError(f"{path}: no PIL mode for a PNG of bit depth {depth}, colour type {ctype}")
-            return width, height, mode
-        if k == "jpeg":
-            width, height, components = _jpeg_frame(f, path)
-            if components not in _JPEG_MODES:
-                raise ValueError(f"{path}: no PIL mode for a JPEG of {components} components")
-            return width, height, _JPEG_MODES[components]
-    if k == "tiff":
-        return tiff.tiff_header(path)
-    if k == "bmp":
-        return bmp.bmp_header(path)
-    if k == "pnm":
-        return pnm.pnm_header(path)
-    if k == "webp":
-        return webp.webp_header(path)
-    if k == "gif":
-        return gif.gif_header(path)[:3]
-    if k == "jpeg2000":
-        return jpeg2000.jpeg2000_header(path)
+    k = file_kind(path)
+    if k in ("png", "jpeg"):
+        with open(path, "rb") as f:
+            head = f.read(26)
+            if k == "png" and head[12:16] == b"IHDR" and len(head) == 26:
+                width, height, depth, ctype = struct.unpack(">IIBB", head[16:26])
+                mode = _PNG_MODES.get((depth, ctype))
+                if mode is None:
+                    raise ValueError(f"{path}: no PIL mode for a PNG of bit depth {depth}, colour type {ctype}")
+                return width, height, mode
+            if k == "jpeg":
+                width, height, components = _jpeg_frame(f, path)
+                if components not in _JPEG_MODES:
+                    raise ValueError(f"{path}: no PIL mode for a JPEG of {components} components")
+                return width, height, _JPEG_MODES[components]
+    readers = {"tiff": tiff.tiff_header, "bmp": bmp.bmp_header, "pnm": pnm.pnm_header, "webp": webp.webp_header,
+               "gif": gif.gif_header, "jpeg2000": jpeg2000.jpeg2000_header, "tga": tga.tga_header,
+               "sgi": sgi.sgi_header, "pcx": pcx.pcx_header, "dcx": dcx.dcx_header, "sun": sun.sun_header,
+               "qoi": qoi.qoi_header}
+    if k in readers:
+        return tuple(readers[k](path)[:3])
     raise ValueError(refusal(path))
 
 
@@ -189,5 +268,6 @@ def pil_mode(path: str | Path) -> str:
     "RGB", "P", "LA" or "RGBA" (16-bit gray+alpha opens as RGBA), for a JPEG
     "L", "RGB" or "CMYK"; for a WebP "RGB" or "RGBA"; for a GIF "P" or "L";
     for a JPEG 2000 "L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P" or "PA";
-    for TIFF, BMP and PNM files what their readers give. A file PIL does not open raises ValueError."""
+    for TIFF, BMP, PNM, TGA, SGI, PCX, DCX, Sun raster and QOI files what
+    their readers give. A file PIL does not open raises ValueError."""
     return header(path)[2]

@@ -19,9 +19,10 @@ Phases:
               and c++ the host libraries, the JPEG codec (io/csrc/jpeg.cpp),
               the canvas pass (data/csrc/canvas.cpp), the TIFF and BMP
               codecs (io/csrc/tiff.cpp), the WebP codec (io/csrc/webp.cpp),
-              the GIF codec (io/csrc/gif.cpp) and the JPEG 2000 codec
-              (io/csrc/jpeg2000.cpp), with the compiler's version and
-              seconds
+              the GIF codec (io/csrc/gif.cpp), the JPEG 2000 codec
+              (io/csrc/jpeg2000.cpp) and the TGA, SGI, PCX, Sun raster and
+              QOI codecs (io/csrc/raster.cpp), with the compiler's version
+              and seconds
   2 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and the tile edges, with times (CUDA
               events, median) and resources: K1 (head chain forward) and K2
@@ -83,7 +84,20 @@ Phases:
               as the TIFF glob's, K2 none; counts zeroed just before and
               read just after) must give the PNG glob's poses; read_jpeg2000's
               ms and MP/s on the committed lossy photo of JPEG_PHOTO_HW
-              (JPEG2000_PHOTO) against PIL's digest
+              (JPEG2000_PHOTO) against PIL's digest; then TGA, SGI, PCX,
+              DCX, Sun raster and QOI (io/tga.py, io/sgi.py, io/pcx.py,
+              io/dcx.py, io/sun.py, io/qoi.py, io/csrc/raster.cpp): the
+              committed fixtures (tests/data/raster; the refused ones must
+              raise, with PIL's mode and size where PIL opens them) against
+              PIL's digests, decode_to_canvas over them and load_depth_file
+              of the depth ones against the JAX package's; the 60 frames as
+              gray RASTER_GLOB_KINDS in turn (the port's writers), whose
+              canvases must be the PNG glob's and whose register CLI run (K1
+              as many as the TIFF glob's, K2 none; counts zeroed just
+              before and read just after) must give the PNG glob's poses;
+              read_tga (run-length), read_sgi, read_pcx and read_qoi's ms
+              and MP/s on a frame of JPEG_PHOTO_HW each, written by the
+              port's writers from the tinted enlargement
   6 mapping   the train CLI end to end on the 60 frames and their shipped
               poses at full width (batch 5,120, 614,400 buffer rows): the
               pipeline's mapping recipe, then the same schedule with the
@@ -508,6 +522,10 @@ WEBP_FIXTURES = ROOT / "tests" / "data" / "webp"
 WEBP_PHOTO = "photo_lossy_q80.webp"  # the committed lossy photo read_webp is timed on
 GIF_FIXTURES = ROOT / "tests" / "data" / "gif"
 JPEG2000_FIXTURES = ROOT / "tests" / "data" / "jpeg2000"
+RASTER_FIXTURES = ROOT / "tests" / "data" / "raster"  # TGA, SGI, PCX, DCX, Sun raster, QOI
+# phase formats: the 60 frames as these in turn (frame i as kind i % 4)
+RASTER_GLOB_KINDS = ("tga_rle", "tga_raw", "sgi", "pcx")
+RASTER_PHOTO_KINDS = ("tga_rle", "sgi", "pcx", "qoi")  # one photo-size frame each, read and timed
 JPEG2000_PHOTO = JPEG2000_FIXTURES / "photo.jp2"  # JPEG_PHOTO_HW, lossy (scripts/make_jpeg2000_fixtures.py)
 JPEG_ROUNDTRIP = ((75, "4:2:0"), (90, "4:2:0"), (95, "4:4:4"), (75, "4:2:0"))
 JPEG_PHOTO_HW = (3286, 4946)
@@ -559,7 +577,15 @@ RUNNER_SOURCES = {
     "rgb.jp2": ("RGB", (34, 870)),
     "gray16.j2k": ("I;16", (25, 700)),
     "cmyk.jpx": ("CMYK", (21, 650)),
+    "rgba_rle.tga": ("RGBA", (26, 700)),
+    "gray.sgi": ("L", (30, 760)),
+    "rgb.pcx": ("RGB", (22, 690)),
+    "rgba.qoi": ("RGBA", (28, 720)),
 }
+# the TGA source's own coding, row order and ID section, which PIL's save
+# of its resize keeps (the runner passes them on)
+RUNNER_TGA_INFO = {"compression": "tga_rle", "orientation": 1, "id_section": b"acezero"}
+RUNNER_BYTES_SUFFIXES = (".jpg", ".tga", ".sgi", ".pcx", ".qoi")  # outputs held to PIL's bytes
 RUNNER_GIF_TRANSPARENCY = {"palette_transparency.gif": 5}  # the GIF sources' transparency index
 RUNNER_PALETTE = [(i * 37 % 256, i * 91 % 256, 255 - i * 16) for i in range(16)]  # palette.png's colours
 FRAMES = "frame_*.png"
@@ -1016,7 +1042,11 @@ def write_runner_sources(np, out: Path) -> list[str]:
     palette, 1-bit and GIF ones copied from RUNNER_FIXTURES; their paths."""
     from acezero_tpu_torch.io.jpeg import write_jpeg
     from acezero_tpu_torch.io.jpeg2000 import write_jpeg2000
+    from acezero_tpu_torch.io.pcx import write_pcx
     from acezero_tpu_torch.io.png import write_png
+    from acezero_tpu_torch.io.qoi import write_qoi
+    from acezero_tpu_torch.io.sgi import write_sgi
+    from acezero_tpu_torch.io.tga import write_tga
 
     out.mkdir(parents=True, exist_ok=True)
     paths = []
@@ -1028,6 +1058,14 @@ def write_runner_sources(np, out: Path) -> list[str]:
             write_jpeg(dst, runner_source(np, name))
         elif name.endswith((".jp2", ".j2k", ".jpx")):
             write_jpeg2000(dst, runner_source(np, name), kind)
+        elif name.endswith(".tga"):
+            write_tga(dst, runner_source(np, name), kind, **RUNNER_TGA_INFO)
+        elif name.endswith(".sgi"):
+            write_sgi(dst, runner_source(np, name), kind)
+        elif name.endswith(".pcx"):
+            write_pcx(dst, runner_source(np, name), kind)
+        elif name.endswith(".qoi"):
+            write_qoi(dst, runner_source(np, name), kind)
         else:
             write_png(dst, runner_source(np, name))
         paths.append(str(dst))
@@ -1053,9 +1091,10 @@ def runner_kinds_check(np, runner, work: Path) -> dict:
     """The runner's downscale of every runner source, written into `work`,
     against PIL's results (RUNNER_FIXTURES/pil_digests.json): for each
     source, whether its pixels, the frame's new size, focal and principal
-    point, and the output's bytes (a JPEG) or mode, pixels and RGB pixels
-    (a PNG; and a GIF's palette and transparency index) equal PIL's, and all
-    of them together (`equal_to_pil`)."""
+    point, and the output's bytes (a JPEG, TGA, SGI, PCX or QOI) or mode,
+    pixels and RGB pixels (a PNG, a TIFF, a JPEG 2000 ...; and a GIF's
+    palette and transparency index) equal PIL's, and all of them together
+    (`equal_to_pil`)."""
     from acezero_tpu_torch.data.images import pil_array, read_image, read_rgb
     from acezero_tpu_torch.io.formats import pil_mode
     from acezero_tpu_torch.io.gif import read_gif
@@ -1068,9 +1107,9 @@ def runner_kinds_check(np, runner, work: Path) -> dict:
         check = {"kind": RUNNER_SOURCES[name][0], "hw": [fr["h"], fr["w"]],
                  "source_equal": array_digest(runner_source(np, name)) == w["source_sha256"],
                  "frame_equal": path.name == name and all(fr[k] == w[k] for k in ("w", "h", "fl_x", "fl_y", "cx", "cy"))}
-        if name.endswith(".jpg"):
+        if name.endswith(RUNNER_BYTES_SUFFIXES):
             check["bytes_equal"] = hashlib.sha256(path.read_bytes()).hexdigest() == w["bytes_sha256"]
-        else:
+        if not name.endswith(".jpg"):
             check["mode"] = pil_mode(path)
             check["pixels_equal"] = (check["mode"] == w["mode"] and array_digest(pil_array(read_image(path))) == w["sha256"]
                                      and array_digest(read_rgb(path)) == w["rgb_sha256"])
@@ -1370,6 +1409,11 @@ def main(argv=None) -> int:
     from acezero_tpu_torch.io import webp as twebp
     from acezero_tpu_torch.io import gif as tgif
     from acezero_tpu_torch.io import jpeg2000 as tj2k
+    from acezero_tpu_torch.io import pcx as tpcx
+    from acezero_tpu_torch.io import qoi as tqoi
+    from acezero_tpu_torch.io import raster as traster
+    from acezero_tpu_torch.io import sgi as tsgi
+    from acezero_tpu_torch.io import tga as ttga
     from acezero_tpu_torch.io.jpeg import read_jpeg, write_jpeg
     from acezero_tpu_torch.io.pose_files import write_pose_file
     from acezero_tpu_torch.data.augment import normalize_images
@@ -1402,9 +1446,10 @@ def main(argv=None) -> int:
         with phase("build", {}) as rec:
             t0 = time.perf_counter()
             # the host libraries (c++: the JPEG codec, the canvas pass, the
-            # TIFF and BMP codecs, the WebP, GIF and JPEG 2000 codecs) build
-            # while nvcc builds the kernels
-            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE, tgif.SOURCE, tj2k.SOURCE)
+            # TIFF and BMP codecs, the WebP, GIF, JPEG 2000 and raster
+            # codecs) build while nvcc builds the kernels
+            host_sources = (tjpeg.SOURCE, tnative.SOURCE, ttiff.SOURCE, twebp.SOURCE, tgif.SOURCE, tj2k.SOURCE,
+                            traster.SOURCE)
             with concurrent.futures.ThreadPoolExecutor(max_workers=len(host_sources)) as ex:
                 hosts = [ex.submit(build.build_host, src) for src in host_sources]
                 build.build([fh.KERNEL, fh.KERNEL_BWD])
@@ -1988,6 +2033,104 @@ def main(argv=None) -> int:
             require(rec["jpeg2000_photo"]["equal_to_pil"], "the JPEG 2000 photo does not decode to PIL's pixels")
             rec["jpeg2000_seconds"] = time.perf_counter() - t0
 
+            # TGA, SGI, PCX, DCX, Sun raster and QOI: (a) the committed
+            # fixtures against PIL's digests (the refused ones must raise,
+            # their header answering PIL's mode and size where PIL opens
+            # them); (b) their canvases and depth maps against the JAX
+            # package's; (c) the 60 frames as gray RASTER_GLOB_KINDS in
+            # turn (the port's writers): the PNG glob's canvases; (d) the
+            # register CLI (K1) the PNG glob's poses
+            t0 = time.perf_counter()
+            rdigests = json.loads((RASTER_FIXTURES / "pil_digests.json").read_text())
+            rchecks = {}
+            for name, want in sorted(rdigests["files"].items()):
+                path = RASTER_FIXTURES / name
+                try:
+                    header_ok = [*tformats.header(path)] == [*want["size"], want["mode"]]
+                except ValueError:
+                    header_ok = False
+                if want.get("raises"):
+                    try:
+                        read_image(path)
+                        rchecks[name] = False
+                    except ValueError as e:
+                        rchecks[name] = str(path) in str(e) and header_ok
+                    continue
+                img = read_image(path)
+                arr = pil_array(img)
+                rchecks[name] = (header_ok and arr.dtype.str == want["dtype"] and list(arr.shape) == want["shape"]
+                                 and array_digest(arr) == want["sha256"]
+                                 and palette_digest(np, getattr(img, "palette", None)) == want["palette"]
+                                 and array_digest(read_rgb(path)) == want["rgb_sha256"])
+            rbad = sorted(n for n, ok in rchecks.items() if not ok)
+            rec["raster_library"] = build.host_target(traster.SOURCE).name
+            rec["raster_build_seconds"] = build.build_info[traster.SOURCE.stem]["seconds"]
+            rec["raster_fixtures_equal_to_pil"] = f"{len(rchecks) - len(rbad)}/{len(rchecks)}"
+            require(rchecks and not rbad, f"raster fixtures not decoded as PIL decodes them: {rbad}")
+            rpaths = sorted(str(RASTER_FIXTURES / n) for n, want in rdigests["files"].items() if not want.get("raises"))
+            rcanvas = []
+            for entry in rdigests["canvas"]:
+                hw = None if entry["canvas_hw"] is None else tuple(entry["canvas_hw"])
+                out = decode_to_canvas(rpaths, short_size=entry["short_size"], canvas_hw=hw, num_workers=4)
+                rcanvas.append({"short_size": entry["short_size"], "canvas_hw": entry["canvas_hw"],
+                                "equal_to_jax": canvas_digest(out) == entry["sha256"]})
+            rdepth = {n: array_digest(load_depth_file(RASTER_FIXTURES / n)) == want
+                      for n, want in rdigests["depth"].items()}
+            rec["raster_canvas"] = rcanvas
+            rec["raster_depth_equal_to_jax"] = f"{sum(rdepth.values())}/{len(rdepth)}"
+            require(len(rcanvas) == 2 and all(c["equal_to_jax"] for c in rcanvas) and rdepth and all(rdepth.values()),
+                    f"the raster fixtures' canvases or depth maps are not the JAX package's: {rcanvas}, {rdepth}")
+            (tmp / "raster").mkdir()
+
+            def write_raster(dst: Path, img, kind_: str):
+                if kind_.startswith("tga"):
+                    ttga.write_tga(dst.with_suffix(".tga"), img, "RGB" if img.ndim == 3 else "L",
+                                   compression="tga_rle" if kind_ == "tga_rle" else None)
+                elif kind_ == "sgi":
+                    tsgi.write_sgi(dst.with_suffix(".sgi"), img, "RGB" if img.ndim == 3 else "L")
+                elif kind_ == "pcx":
+                    tpcx.write_pcx(dst.with_suffix(".pcx"), img, "RGB" if img.ndim == 3 else "L")
+                else:
+                    tqoi.write_qoi(dst.with_suffix(".qoi"), img, "RGB")
+
+            def make_raster(i_f):
+                i, f = i_f
+                gray = read_png(f)
+                t1 = time.perf_counter()
+                write_raster(tmp / "raster" / Path(f).stem, gray, RASTER_GLOB_KINDS[i % len(RASTER_GLOB_KINDS)])
+                return time.perf_counter() - t1
+
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                write_s = list(ex.map(make_raster, enumerate(frames)))
+            raster_files = sorted(glob.glob(str(tmp / "raster" / "frame_*")))
+            raster_kinds = sorted({tformats.file_kind(p_) for p_ in raster_files})
+            raster_modes = {tformats.pil_mode(p_) for p_ in raster_files}
+            rec["raster_glob"] = {"frames": len(raster_files), "kinds": raster_kinds,
+                                  "mean_bytes": statistics.mean(Path(p_).stat().st_size for p_ in raster_files),
+                                  "write_ms": statistics.median(write_s) * 1e3}
+            rec["raster_canvases_equal_to_png"] = (raster_modes == {"L"} and len(raster_files) == N_FRAMES
+                                                   and raster_kinds == ["pcx", "sgi", "tga"] and canvas_digest(
+                                                       decode_to_canvas(raster_files, short_size=480)) == want_canvas)
+            require(rec["raster_canvases_equal_to_png"],
+                    f"the raster glob's canvases differ from the PNG glob's ({raster_kinds}, {raster_modes})")
+            net = tmp / "head_raster.pt"
+            shutil.copy(HEAD, net)
+            argv = [str(tmp / "raster" / "frame_*"), str(net), "--encoder_path", str(ENCODER),
+                    "--use_external_focal_length", str(FOCAL), "--session", "raster", "--device", DEVICE]
+            fh.LAUNCHES = fh.LAUNCHES_BWD = 0
+            t1 = time.perf_counter()
+            require(register_cli.main(argv) == 0, "register_cli failed on the raster glob")
+            torch.cuda.synchronize()
+            format_launches["register_raster"] = {"fwd": fh.LAUNCHES, "bwd": fh.LAUNCHES_BWD,
+                                                  "seconds": time.perf_counter() - t1}
+            raster_poses = [ln.split()[1:] for ln in (tmp / "poses_raster.txt").read_text().splitlines()]
+            rec["raster_register_poses_equal"] = raster_poses == poses["png"] and len(raster_poses) == N_FRAMES
+            require(rec["raster_register_poses_equal"], "register_cli gives other poses on the raster glob")
+            r_ = format_launches["register_raster"]
+            require(r_["fwd"] == format_launches["register_tiff"]["fwd"] > 0 and r_["bwd"] == 0,
+                    f"register_cli on the raster glob: launches {r_} (the TIFF glob's {format_launches['register_tiff']})")
+            raster_seconds = time.perf_counter() - t0
+
             # (c) photo-size frames: the chesslike frames enlarged to
             # JPEG_PHOTO_HW and tinted, as each of FORMAT_PHOTO_KINDS, as
             # lossless WebP, and as P GIFs whose palette gives the same
@@ -2024,6 +2167,7 @@ def main(argv=None) -> int:
                             "make_seconds": t1 - t0, "make_gif_seconds": time.perf_counter() - t1,
                             "write_webp_ms": statistics.median(w_ for _, w_ in made) * 1e3,
                             "write_gif_ms": statistics.median(gif_write_s) * 1e3}
+            raster_photo = tinted(np, made[0][0])
             del made
             gif_seconds += rec["photo"]["make_gif_seconds"]
             for k in FORMAT_PHOTO_KINDS:
@@ -2075,11 +2219,37 @@ def main(argv=None) -> int:
             require(all(r["frames"] == FORMAT_PHOTO_FRAMES for r in runs), f"decode_to_canvas of the photo frames: {runs}")
             require(len({r["sha256"] for r in runs}) == 1,
                     "the photo frames' canvases differ between kinds or worker counts")
-            shutil.rmtree(photo)
             webp_seconds += sum(r["seconds"] for (k, _), r in zip(pairs, runs) if k == "webp")
             gif_seconds += sum(r["seconds"] for (k, _), r in zip(pairs, runs) if k == "gif")
             rec["webp_seconds"] = webp_seconds
             rec["gif_seconds"] = gif_seconds
+
+            # the raster readers at photo size: one tinted enlargement of
+            # JPEG_PHOTO_HW as each of RASTER_PHOTO_KINDS (the port's
+            # writers), read back whole and timed (median of 3)
+            t0 = time.perf_counter()
+            readers = {"tga_rle": ttga.read_tga, "sgi": tsgi.read_sgi, "pcx": tpcx.read_pcx, "qoi": tqoi.read_qoi}
+            (photo / "raster").mkdir(parents=True)
+            for k in RASTER_PHOTO_KINDS:
+                t1 = time.perf_counter()
+                write_raster(photo / "raster" / f"photo_{k}", raster_photo, k)
+                write_ms = (time.perf_counter() - t1) * 1e3
+                path = next((photo / "raster").glob(f"photo_{k}.*"))
+                read_s = []
+                for _ in range(3):
+                    t1 = time.perf_counter()
+                    r = readers[k](path)
+                    read_s.append(time.perf_counter() - t1)
+                equal = r.mode == "RGB" and np.array_equal(r.pixels, raster_photo)
+                del r
+                rec["photo"][k] = {"bytes": path.stat().st_size, "write_ms": write_ms,
+                                   f"read_{k.split('_')[0]}_ms": statistics.median(read_s) * 1e3,
+                                   f"read_{k.split('_')[0]}_mp_per_s": mp / statistics.median(read_s),
+                                   "equal_to_source": equal}
+                require(equal, f"the {k} photo frame does not read back to its pixels")
+            shutil.rmtree(photo)
+            del raster_photo
+            rec["raster_seconds"] = raster_seconds + time.perf_counter() - t0
 
     groups = parallel_groups(phases) if handoff is None else []
     if groups:

@@ -10,10 +10,11 @@ PIL's where there is no PIL (the card's machine):
   of chip_smoke.runner_source's pixels, and what the JAX runner's
   downscale (PIL's `resize(BILINEAR)` and `save`) makes of the source that
   chip_smoke.write_runner_sources writes: the frame's new size, focal and
-  principal point, and the output's bytes (a JPEG) or its mode, its pixels
-  as PIL opens it and its `convert("RGB")` (a PNG; a mode-P output's
-  indices, a mode-1 output's bits; for a GIF also the palette, as
-  chip_smoke.palette_digest, and the transparency index).
+  principal point, the output's bytes (a JPEG, TGA, SGI, PCX or QOI),
+  and but for a JPEG its mode, its pixels as PIL opens it and its
+  `convert("RGB")` (a mode-P output's indices, a mode-1 output's bits; for
+  a GIF also the palette, as chip_smoke.palette_digest, and the
+  transparency index).
 
     python3 scripts/make_runner_fixtures.py
 
@@ -64,9 +65,9 @@ def digests(work: Path) -> dict:
     for name, fr in frames.items():
         entry = {"source_sha256": chip_smoke.array_digest(chip_smoke.runner_source(np, name)),
                  **{k: fr[k] for k in ("w", "h", "fl_x", "fl_y", "cx", "cy")}}
-        if name.endswith(".jpg"):
+        if name.endswith(chip_smoke.RUNNER_BYTES_SUFFIXES):
             entry["bytes_sha256"] = hashlib.sha256(Path(fr["file_path"]).read_bytes()).hexdigest()
-        else:
+        if not name.endswith(".jpg"):
             with Image.open(fr["file_path"]) as img:
                 arr = np.asarray(img)
                 entry.update(mode=img.mode, shape=list(arr.shape), sha256=chip_smoke.array_digest(arr),

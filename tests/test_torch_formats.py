@@ -546,17 +546,35 @@ def _queued_files(tmp_path) -> dict:
         buf = io.BytesIO()
         Image.fromarray(rgb).save(buf, format="JPEG2000", no_jp2=suffix == "j2k")
         put(f"frame.{suffix}", buf.getvalue())
+    for fmt in ("QOI", "TGA", "SGI", "PCX"):
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format=fmt)
+        put(f"frame.{fmt.lower()}", buf.getvalue())
+    buf = io.BytesIO()
+    Image.fromarray(np.tile(rgb, (2, 2, 1))[:16, :16]).save(buf, format="ICO", sizes=[(16, 16)])
+    put("frame.ico", buf.getvalue())
+    # a Sun raster of the frame (PIL writes none): 24-bit BGR rows padded to 16 bits
+    rows = np.pad(rgb[..., ::-1].reshape(9, 36), ((0, 0), (0, 0)))
+    put("frame.ras", struct.pack(">8I", 0x59A66A95, 12, 9, 24, rows.size, 1, 0, 0) + rows.tobytes())
+    # a cursor (PIL writes none): one entry whose image is a 24-bit BMP
+    # bitmap of twice the height (the image, then its AND mask)
+    dib = struct.pack("<IiiHHIIiiII", 40, 12, 18, 1, 24, 0, 0, 0, 0, 0, 0)
+    dib += rgb[::-1, :, ::-1].tobytes() + bytes(9 * 4)
+    put("frame.cur", b"\x00\x00\x02\x00\x01\x00" + struct.pack("<BBBBHHII", 12, 9, 0, 0, 1, 1, len(dib), 22) + dib)
     return out
 
 
 QUEUED = ("ccitt_g4.tif", "old_jpeg.tif", "ycbcr_raw.tif", "lab.tif", "pa.tif", "gray12.tif", "float_mm_deflate.tif",
           "bigtiff.tif", "rgba16_assoc.tif", "rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif",
-          "frame.jp2", "frame.j2k")
+          "frame.jp2", "frame.j2k", "frame.qoi", "frame.tga", "frame.sgi", "frame.pcx", "frame.ras", "frame.ico",
+          "frame.cur")
 # queued once, read since: a GIF frame (tests/test_torch_gif.py holds every
 # kind), an RLE delta escape, a 4-bit gray palette, Pillow's own PyP, a
 # JPEG 2000 frame in JP2 boxes and as a bare codestream
-# (tests/test_torch_jpeg2000.py holds every kind)
-READ_SINCE = ("rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif", "frame.jp2", "frame.j2k")
+# (tests/test_torch_jpeg2000.py holds every kind), QOI, TGA, SGI, PCX and
+# Sun raster frames (tests/test_torch_raster.py holds every kind)
+READ_SINCE = ("rle_delta.bmp", "gray4_palette.bmp", "pillow_only.ppm", "frame.gif", "frame.jp2", "frame.j2k",
+              "frame.qoi", "frame.tga", "frame.sgi", "frame.pcx", "frame.ras")
 
 
 @pytest.mark.parametrize("name", QUEUED)
@@ -574,6 +592,10 @@ def test_queued_kinds_raise_naming_the_file(name, tmp_path):
     assert str(path) in str(exc.value)
     with pytest.raises(ValueError, match="not read yet"):
         formats.pil_mode(path)
+    with Image.open(path) as im:
+        kind = im.format
+    if kind in ("ICO", "CUR"):  # their signatures also begin a TGA header: never read as one
+        assert f"{kind}, not read yet" in str(exc.value) and formats.file_kind(path) is None
 
 
 def test_webp_frame_decodes_as_pil(tmp_path):
